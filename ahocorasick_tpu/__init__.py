@@ -1,10 +1,11 @@
-"""ahocorasick_tpu — TPU-native multi-pattern string matching.
+"""ahocorasick_tpu — multi-pattern string matching on JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 RokLenarcic/AhoCorasick Java library: Aho-Corasick all-matches,
 leftmost-longest, leftmost-shortest and whole-word multi-keyword search,
 compiled host-side into dense tables and executed as data-parallel scans on
-TPU (with CPU fallback), sharded across device meshes for large corpora.
+an NVIDIA GPU (or JAX's CPU backend), sharded across device meshes for
+large corpora.
 
 Multi-chip surfaces live in ``ahocorasick_tpu.parallel.sharding``
 (``ShardedScanner`` — data-parallel; ``TableShardedScanner`` —

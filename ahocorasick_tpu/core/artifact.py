@@ -2,7 +2,8 @@
 
 The reference has no persistence — matchers are rebuilt from the keyword
 iterable every process start (README.md:29 advertises memory-frugal keyword
-streaming instead).  For TPU-scale dictionaries that is the wrong trade: a
+streaming instead).  For accelerator-scale dictionaries that is the wrong
+trade: a
 1M-keyword compile produces ~GBs of tables and takes minutes, so the
 compiled artifact is saved once and mapped thereafter.
 

@@ -1,6 +1,6 @@
 """Host-side matcher compiler: keywords -> dense numpy automaton tables.
 
-This is the TPU-native replacement for the reference's eight per-matcher
+This is the device-oriented replacement for the reference's eight per-matcher
 construction pipelines (canonical copy: ``AhoCorasickSet.java:20-191``).
 Where the reference builds a pointer-linked trie with per-node hashmap/range
 storage and walks fail links at match time, we compile everything down to a
@@ -11,7 +11,7 @@ kernel, sharded multi-chip scan) is a pure gather program over static shapes:
   word-character classification baked in; moral heir of the reference's
   ``Character.toLowerCase`` calls and ``WordCharacters`` tables).
 * ``trie_next`` — goto function over trie edges only, with an absorbing DEAD
-  state.  This powers the *failureless* parallel scan: on TPU we do not
+  state.  This powers the *failureless* parallel scan: on device we do not
   translate fail links into the hot loop at all — every position walks its
   own trie path in parallel, so fail transitions (whose only purpose is to
   let a *sequential* scanner avoid restarting) are unnecessary there.

@@ -998,12 +998,9 @@ def make_cursor(m: CompiledMatcher, dev=None, engine: str = "auto", ac=None):
 
 
 def _default_backend_is_accelerator() -> bool:
-    try:
-        import jax
+    from ahocorasick_tpu.ops import dispatch
 
-        return jax.default_backend() != "cpu"
-    except Exception:
-        return False
+    return dispatch.backend() != "cpu"
 
 
 class StreamScanner:

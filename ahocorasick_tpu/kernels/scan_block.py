@@ -1,29 +1,23 @@
-"""Pallas block-gather DFA scan (engine v8) — small-dictionary speed of light.
+"""Pallas (Triton) block DFA scan — small-dictionary engine ("block").
 
-The v5e has no vector-gather hardware: XLA element gathers serialize at
-~0.1 G lookups/s and whole-row gathers at ~0.4 G rows/s (see probe3/4 and
-docs/PERF.md).  But a table that fits a handful of vector registers can be
-"gathered" on the VPU itself: hold the flat table as (R, 128) in VMEM and,
-per lookup vector, do R rounds of
+One program scans a block of ``_LANES`` chunk windows, one window per
+thread, with the whole character loop (halo warmup + body) inside the
+kernel.  Each step reads the next packed entry by a direct indexed load
+``table[s * A + c]``; the table (S*A <= ``MAX_ENTRIES`` uint32 entries,
+1 MB) stays in L1/L2 for the whole scan.  The XLA engines run the same
+loop as a ``lax.scan`` of ~halo + 512 dependent steps, each a small gather
+over the window lanes.
 
-    broadcast row j  ->  lane-permute by (idx & 127)  ->  select where idx>>7 == j
+Windows follow the one window contract of ``ops/dispatch.py``
+(``scan_batched.chunk_classes``: d-synchronizing left halo, PAD_CLASS
+padding; reference hot loop ``AhoCorasickSet.java:204-226``).  They are
+transposed in-jit to time-major ``(W, B)`` so each step loads contiguous
+lanes.  Packed entries are ``next_state | emit_mask << state_bits``, suffix
+chain included (``AhoCorasickSet.java:522-535``); the kernels return a
+total match count or END-indexed emit planes.
 
-Each round is three full-rate VPU ops, so the rate is ~(VPU ops/s)/(3R):
-measured 30 G lookups/s at R=8, 7.2 G at R=32, 2.2 G at R=128 (probe3) —
-one to two orders of magnitude above any real gather.  For a dictionary
-whose packed DFA has S*A <= 2**16 entries (R <= 512) this beats the
-row-gather engines; below ~R=64 the scan approaches input-bandwidth limits.
-
-The kernel scans B = G*8*128 chunk windows in parallel lanes (the same
-(d)-synchronizing halo-warmup scheme as ``ops/scan_batched``; reference hot
-loop ``AhoCorasickSet.java:204-226``), with the text windows streamed
-HBM->VMEM by the Pallas grid pipeline, and emits either a total match count
-or per-position END-indexed emit masks (packed table entries are
-``next_state | emit_mask << state_bits``, suffix chain included —
-``AhoCorasickSet.java:522-535``).
-
-Lane geometry: windows are regrouped host-side so each grid step works on
-a (8, 128) lane block per character step — the native VPU register shape.
+The kernel is compiled for the GPU by Triton.  ``interpret=True`` runs it
+on the CPU; only tests ask for that.
 """
 
 from __future__ import annotations
@@ -37,185 +31,160 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-
+from jax.experimental.pallas import triton as pl_triton
 
 from ahocorasick_tpu.core.compiler import CompiledMatcher
-from ahocorasick_tpu.ops.scan_batched import PAD_CLASS, build_packed, effective_rows
+from ahocorasick_tpu.ops.scan_batched import build_packed, effective_rows
 
-# Flat-table entry budget.  Measured per-char cost is ~0.19ns + 1.79ps*R
-# (R = entries/128): the select chain beats stride-2 row gathers up to
-# R~640 and stride-1 up to R~1230; ops/scan_rowdfa.pick_engine compares the
-# models.  The hard cap bounds Mosaic compile time (the R-round loop is
-# unrolled in the kernel body).
+# Coverage: the dictionaries whose packed table has at most 2**18 entries
+# (1 MB), the set this engine has always served.  Larger tables were not
+# measured with it.
 MAX_ENTRIES = 1 << 18
 
-_LANES = 1024  # (8, 128) per grid step
+# Windows per program: one thread per window at four warps.
+_LANES = 128
+_COMPILER_PARAMS = pl_triton.CompilerParams(num_warps=4, num_stages=1)
 
 
 class BlockDfa(NamedTuple):
-    table: np.ndarray  # uint32[R, 128]: flat packed table, entry s*A + c
+    table: np.ndarray  # uint32[S*A]: flat packed table, entry s*A + c
     state_bits: int
     halo: int
     num_classes: int
-    num_blocks: int  # R
 
 
-def fits(m: CompiledMatcher, max_entries: int | None = None) -> bool:
-    if max_entries is None:
-        max_entries = MAX_ENTRIES
+def fits(m: CompiledMatcher) -> bool:
     S, A = effective_rows(m), m.num_classes
     d = max(m.max_depth, 1)
     state_bits = max(int(S - 1).bit_length(), 1)
-    return state_bits + d <= 32 and S * A <= max_entries
+    return state_bits + d <= 32 and S * A <= MAX_ENTRIES
 
 
 def build_block(m: CompiledMatcher) -> BlockDfa:
     pd = build_packed(m)
     assert pd.emit_mask is None, "block engine requires the packed-inline layout"
     S, A = pd.table.shape  # quotient rows for row-compressed matchers
-    flat = pd.table.reshape(S * A)
-    R = -(-(S * A) // 128)
-    table = np.zeros(R * 128, dtype=np.uint32)
-    table[: S * A] = flat
-    return BlockDfa(table.reshape(R, 128), pd.state_bits, pd.halo, A, R)
+    flat = np.ascontiguousarray(pd.table.reshape(S * A))
+    return BlockDfa(flat, pd.state_bits, pd.halo, A)
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def _time_major(windows: jax.Array) -> jax.Array:
+    """(B, W) windows -> (W, Bp) with Bp = B rounded up to ``_LANES``; the
+    padded lanes are PAD_CLASS (0) windows, which never emit."""
+    B, _ = windows.shape
+    Bp = -(-B // _LANES) * _LANES
+    return jnp.pad(windows.T, ((0, 0), (0, Bp - B)))
 
 
-def _lookup(tab_ref, idx: jax.Array, R: int) -> jax.Array:
-    """table[idx] for idx (8,128) via R rounds of broadcast/permute/select."""
-    lane = (idx & np.uint32(127)).astype(jnp.int32)
-    row_id = (idx >> np.uint32(7)).astype(jnp.int32)
-    acc = jnp.zeros(idx.shape, jnp.uint32)
-    for j in range(R):
-        big = jnp.broadcast_to(tab_ref[j : j + 1, :], idx.shape)
-        g = jnp.take_along_axis(big, lane, axis=1)
-        acc = jnp.where(row_id == j, g, acc)
-    return acc
+def _scan_fns(halo: int, state_bits: int, num_classes: int):
+    A = np.uint32(num_classes)
+    smask = np.uint32((1 << state_bits) - 1)
+
+    def lookup(tab_ref, w_ref, t, s):
+        c = w_ref[t, :].astype(jnp.uint32)
+        return tab_ref[(s * A + c).astype(jnp.int32)]
+
+    def warm(tab_ref, w_ref):
+        return lax.fori_loop(
+            0, halo, lambda t, s: lookup(tab_ref, w_ref, t, s) & smask,
+            jnp.zeros((_LANES,), jnp.uint32))
+
+    return lookup, warm, smask
 
 
-def regroup_windows(windows: np.ndarray) -> np.ndarray:
-    """(B, W) int32 -> (G*W*8, 128): per grid step g and char t, the lane
-    block sits at rows [ (g*W + t)*8 : +8 ].  B is padded to G*1024 with
-    PAD_CLASS windows (they scan from the root and never emit)."""
-    B, W = windows.shape
-    G = -(-B // _LANES)
-    if G * _LANES != B:
-        pad = np.full((G * _LANES - B, W), PAD_CLASS, dtype=windows.dtype)
-        windows = np.concatenate([windows, pad], axis=0)
-    arr = windows.reshape(G, 8, 128, W).transpose(0, 3, 1, 2)  # (G, W, 8, 128)
-    return np.ascontiguousarray(arr.reshape(G * W * 8, 128))
+def _popcount(x: jax.Array) -> jax.Array:
+    """Bit count of uint32 lanes by SWAR adds (Triton does not lower
+    ``lax.population_count``)."""
+    x = x - ((x >> 1) & np.uint32(0x55555555))
+    x = (x & np.uint32(0x33333333)) + ((x >> 2) & np.uint32(0x33333333))
+    x = (x + (x >> 4)) & np.uint32(0x0F0F0F0F)
+    return ((x * np.uint32(0x01010101)) >> 24).astype(jnp.int32)
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("halo", "state_bits", "num_classes", "num_blocks", "W", "G"),
-)
+    jax.jit, static_argnames=("halo", "state_bits", "num_classes", "interpret"))
 def block_count(
-    table: jax.Array,  # uint32[R, 128]
-    wt: jax.Array,  # int32[G*W*8, 128] (regroup_windows output)
+    table: jax.Array,  # uint32[S*A]
+    windows: jax.Array,  # int[B, halo + C] (chunk_classes layout)
     halo: int,
     state_bits: int,
     num_classes: int,
-    num_blocks: int,
-    W: int,
-    G: int,
+    interpret: bool = False,
 ) -> jax.Array:
-    R = num_blocks
-    A = np.uint32(num_classes)
-    smask = np.uint32((1 << state_bits) - 1)
+    """Total match count (int32 scalar) over the windows' bodies."""
+    lookup, warm, smask = _scan_fns(halo, state_bits, num_classes)
     sb = np.uint32(state_bits)
+    wt = _time_major(windows)
+    W, Bp = wt.shape
 
     def kernel(tab_ref, w_ref, out_ref):
-        def get_c(t):
-            blk = w_ref[pl.dslice(t * 8, 8), :]
-            return blk.astype(jnp.uint32)
-
-        def warm(t, s):
-            v = _lookup(tab_ref, s * A + get_c(t), R)
-            return v & smask
-
-        s0 = jnp.zeros((8, 128), jnp.uint32)
-        s = lax.fori_loop(0, halo, warm, s0)
-
         def step(t, carry):
             s, acc = carry
-            v = _lookup(tab_ref, s * A + get_c(t), R)
-            acc = acc + lax.population_count(v >> sb).astype(jnp.int32)
+            v = lookup(tab_ref, w_ref, t, s)
+            acc = acc + _popcount(v >> sb)
             return v & smask, acc
 
-        _, acc = lax.fori_loop(halo, W, step, (s, jnp.zeros((8, 128), jnp.int32)))
-        out_ref[:, :] = acc
+        _, acc = lax.fori_loop(
+            halo, W, step,
+            (warm(tab_ref, w_ref), jnp.zeros((_LANES,), jnp.int32)))
+        out_ref[:] = acc
 
     counts = pl.pallas_call(
         kernel,
-        grid=(G,),
+        grid=(Bp // _LANES,),
         in_specs=[
-            pl.BlockSpec((table.shape[0], 128), lambda g: (0, 0)),
-            pl.BlockSpec((W * 8, 128), lambda g: (g, 0)),
+            pl.BlockSpec(table.shape, lambda i: (0,)),
+            pl.BlockSpec((W, _LANES), lambda i: (0, i)),
         ],
-        out_specs=pl.BlockSpec((8, 128), lambda g: (g, 0)),
-        out_shape=jax.ShapeDtypeStruct((G * 8, 128), jnp.int32),
-        interpret=_interpret(),
+        out_specs=pl.BlockSpec((_LANES,), lambda i: (i,)),
+        out_shape=jax.ShapeDtypeStruct((Bp,), jnp.int32),
+        backend="triton",
+        compiler_params=_COMPILER_PARAMS,
+        interpret=interpret,
+        name="ac_block_count",
     )(table, wt)
     return jnp.sum(counts)
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("halo", "state_bits", "num_classes", "num_blocks", "W", "G"),
-)
+    jax.jit, static_argnames=("halo", "state_bits", "num_classes", "interpret"))
 def block_emit_planes(
-    table: jax.Array,
-    wt: jax.Array,  # int32[G*W*8, 128]
+    table: jax.Array,  # uint32[S*A]
+    windows: jax.Array,  # int[B, halo + C] (chunk_classes layout)
     halo: int,
     state_bits: int,
     num_classes: int,
-    num_blocks: int,
-    W: int,
-    G: int,
+    interpret: bool = False,
 ) -> jax.Array:
-    """END-indexed emit planes uint32[1, G*1024*C] in flat text order
-    (C = W - halo; window b's positions are contiguous).  NOTE: the lane
-    axis is the regrouped G*1024 (B rounded up), not the caller's B — the
-    padded trailing lanes are PAD_CLASS and never emit; callers trim to
-    the text length (see ops/dispatch.py)."""
-    R = num_blocks
-    C = W - halo
-    A = np.uint32(num_classes)
-    smask = np.uint32((1 << state_bits) - 1)
+    """END-indexed emit planes uint32[1, B*C] in flat text order (window
+    b's C positions are contiguous), as ``rowdfa1_emit_planes``."""
+    lookup, warm, smask = _scan_fns(halo, state_bits, num_classes)
     sb = np.uint32(state_bits)
+    B = windows.shape[0]
+    wt = _time_major(windows)
+    W, Bp = wt.shape
+    C = W - halo
 
     def kernel(tab_ref, w_ref, out_ref):
-        def get_c(t):
-            blk = w_ref[pl.dslice(t * 8, 8), :]
-            return blk.astype(jnp.uint32)
-
-        def warm(t, s):
-            v = _lookup(tab_ref, s * A + get_c(t), R)
-            return v & smask
-
-        s = lax.fori_loop(0, halo, warm, jnp.zeros((8, 128), jnp.uint32))
-
         def step(t, s):
-            v = _lookup(tab_ref, s * A + get_c(t), R)
-            out_ref[pl.dslice((t - halo) * 8, 8), :] = v >> sb
+            v = lookup(tab_ref, w_ref, t, s)
+            out_ref[t - halo, :] = v >> sb
             return v & smask
 
-        lax.fori_loop(halo, W, step, s)
+        lax.fori_loop(halo, W, step, warm(tab_ref, w_ref))
 
     masks = pl.pallas_call(
         kernel,
-        grid=(G,),
+        grid=(Bp // _LANES,),
         in_specs=[
-            pl.BlockSpec((table.shape[0], 128), lambda g: (0, 0)),
-            pl.BlockSpec((W * 8, 128), lambda g: (g, 0)),
+            pl.BlockSpec(table.shape, lambda i: (0,)),
+            pl.BlockSpec((W, _LANES), lambda i: (0, i)),
         ],
-        out_specs=pl.BlockSpec((C * 8, 128), lambda g: (g, 0)),
-        out_shape=jax.ShapeDtypeStruct((G * C * 8, 128), jnp.uint32),
-        interpret=_interpret(),
+        out_specs=pl.BlockSpec((C, _LANES), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((C, Bp), jnp.uint32),
+        backend="triton",
+        compiler_params=_COMPILER_PARAMS,
+        interpret=interpret,
+        name="ac_block_emit_planes",
     )(table, wt)
-    # (G, C, 8, 128) -> lane-major (G, 8, 128, C) -> flat window-major text order
-    return masks.reshape(G, C, 8, 128).transpose(0, 2, 3, 1).reshape(1, -1)
+    return masks[:, :B].T.reshape(1, -1)

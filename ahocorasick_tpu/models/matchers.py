@@ -1,4 +1,4 @@
-"""Public matcher classes — the reference API surface, TPU-native inside.
+"""Public matcher classes — the reference API surface, JAX engines inside.
 
 Maps the reference's eight matchers (``StringSet``/``StringMap`` families)
 onto five compiled kinds with set/map façades:
@@ -89,31 +89,25 @@ def _auto_min_units(compiled: CompiledMatcher) -> int:
     """Engine-aware auto threshold: input size above which the device path
     beats the host gold loop.
 
-    The break-even is ``overhead / (gold_ns - engine_ns)`` per char; with
-    the gold loop at ~1 us/char and every device engine at 0.2-15 ns/char,
-    the denominator is dominated by gold, so the real differentiator is the
-    FIRST-call overhead: small block/rowdfa tables compile+upload in
-    milliseconds (threshold 4Ki units), mid-size packed tables in tens of
-    ms (16Ki), and huge split/hotstate tables pay an upload proportional
-    to table bytes (64Ki).  Constants follow the measured per-char cost
-    model in ``ops.scan_rowdfa.pick_engine`` and the upload rates in
-    docs/PERF.md.
+    The break-even is ``overhead / (gold_ns - engine_ns)`` per char; the
+    gold loop costs ~1 us/char, far above any device engine, so the real
+    differentiator is the first-call overhead (table build, upload,
+    compile): small tables get 4Ki units, mid-size packed tables 16Ki, and
+    huge split/hotstate tables, whose upload grows with table bytes, 64Ki.
+    These thresholds were not measured on the card.
     """
-    try:
-        from ahocorasick_tpu.ops import scan_batched, scan_rowdfa
-        from ahocorasick_tpu.kernels import scan_block
+    from ahocorasick_tpu.kernels import scan_block
+    from ahocorasick_tpu.ops import scan_batched, scan_rowdfa
 
-        if compiled.dfa_next is None:
-            return _AUTO_DEVICE_MIN_UNITS
-        rows = scan_batched.effective_rows(compiled)
-        table_bytes = rows * compiled.num_classes * 4
-        if table_bytes > (48 << 20):
-            return 1 << 16
-        if scan_block.fits(compiled) or scan_rowdfa.fits1(compiled):
-            return 1 << 12
+    if compiled.dfa_next is None:
         return _AUTO_DEVICE_MIN_UNITS
-    except Exception:
-        return _AUTO_DEVICE_MIN_UNITS
+    rows = scan_batched.effective_rows(compiled)
+    table_bytes = rows * compiled.num_classes * 4
+    if table_bytes > (48 << 20):
+        return 1 << 16
+    if scan_block.fits(compiled) or scan_rowdfa.fits1(compiled):
+        return 1 << 12
+    return _AUTO_DEVICE_MIN_UNITS
 # Lane counts are rounded up to this bucket so repeated calls with different
 # text lengths reuse compiled executables (padded lanes die without emitting).
 from ahocorasick_tpu.utils.lanes import LANE_BUCKET as _LANE_BUCKET
@@ -747,9 +741,10 @@ def _wwl_compact_lanes(compiled: CompiledMatcher, cls: np.ndarray):
 class _PfacEngine(_Matcher):
     """All-candidates parallel scan; AC emits directly, Longest resolves.
 
-    Default device path is the batched-halo DFA scan (``ops/scan_batched``,
-    one gather per character — the v5e optimum); the PFAC v2 walk engine
-    remains available via ``device_engine="pfac2"`` for cross-checking.
+    Default device path is the engine ``ops/dispatch`` picks (block /
+    row-gather / batched-halo DFA scan, one table lookup per character);
+    the PFAC v2 walk engine remains available via
+    ``device_engine="pfac2"`` for cross-checking.
     """
 
     device_engine = "rowdfa"
@@ -785,7 +780,7 @@ class _PfacEngine(_Matcher):
         if force_batched is None:
             force_batched = self.device_engine != "rowdfa"
         plan = dispatch.planes_plan(self.compiled, self.dev,
-                                    force_batched=force_batched)
+                                    "batched" if force_batched else None)
         windows = scan_batched.chunk_classes(
             cls, _BATCH_CHUNK, plan.halo, self.compiled.num_classes)
         bits = plan.fn(plan.tables, jnp.asarray(windows))
@@ -869,7 +864,7 @@ class AhoCorasickSet(_PfacEngine):
 
         plan = dispatch.count_plan(
             self.compiled, self.dev,
-            force_batched=self.device_engine == "batched")
+            "batched" if self.device_engine == "batched" else None)
         windows = scan_batched.chunk_classes(
             cls, _BATCH_CHUNK, plan.halo, self.compiled.num_classes)
         return plan.fn(plan.tables, jnp.asarray(windows))
@@ -1137,7 +1132,7 @@ class WholeWordLongestMatchSet(_Matcher):
             # every walk (die position from the arrival-state depth plane) —
             # the fast path for pure-word-char dictionaries, including
             # row-compressed (quotient) ones.  The chooser picks the fused-
-            # carry kernel when applicable (measured v5e A/B, docs/PERF.md).
+            # carry kernel when applicable (``scan_wwl.FUSED_DEFAULT``).
             sc = self.dev.wwl_scan
             die_c, has_c, ms_c, me_c, mv_c = scan_wwl.scan_walks_auto(
                 sc, cls_p, starts, d, cross=False)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -23,12 +24,14 @@ def _load():
     if os.environ.get("AHOCORASICK_TPU_NO_NATIVE"):
         _lib = False
         return _lib
-    try:
-        from ahocorasick_tpu.native.build import build
+    from ahocorasick_tpu.native.build import build
 
+    try:
         path = build()
         lib = ctypes.CDLL(path)
-    except Exception:
+    except (OSError, subprocess.CalledProcessError):
+        # No toolchain or a failed build: callers take the pure-Python
+        # path (``chip_smoke.py`` refuses to run without the library).
         _lib = False
         return _lib
 

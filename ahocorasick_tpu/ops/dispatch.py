@@ -8,17 +8,19 @@ former hand-rolled copies of the engine switch (matcher emit-planes path,
 fused device count, bench kernel-rate harness, sharded counter) cannot
 drift: adding an engine or changing a halo convention happens here once.
 
-Window contract: every ``fn(tables, windows)`` takes ``int32[B, halo + C]``
+Window contract: every ``fn(tables, windows)`` takes ``int[B, halo + C]``
 windows as built by ``scan_batched.chunk_classes(cls, chunk, plan.halo)``
-(left halo warmup, PAD_CLASS padding).  The block engine's lane regrouping
-happens in-jit (a reshape/transpose — one cheap HBM pass), so callers never
-special-case the window layout.  ``chunk`` must be even (the stride-2
-engine pairs characters; 512 everywhere).
+(left halo warmup, PAD_CLASS padding).  ``chunk`` must be even (the
+stride-2 engine pairs characters; 512 everywhere).
+
+The backend the engines compile for is read here once (``backend``) and
+handed to ``pick_engine``, so the facade, the stream cursors, the bench
+harness and the sharded fronts all make the same pick.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 
 class EnginePlan(NamedTuple):
@@ -28,47 +30,35 @@ class EnginePlan(NamedTuple):
     fn: Callable  # fn(tables, windows) -> int32 count | uint32[P, N] planes
 
 
-def _regroup_in_jit(windows):
-    """(B, W) windows -> ((G*W*8, 128) lane-major, W, G) for the block
-    kernel; mirrors ``kernels.scan_block.regroup_windows`` (host numpy)
-    exactly, with PAD_CLASS(=0) lanes padding B up to G*1024."""
-    import jax.numpy as jnp
+def backend() -> str:
+    """The JAX backend the device engines run on ("gpu", "cpu", ...)."""
+    import jax
 
-    B, W = windows.shape
-    G = -(-B // 1024)
-    if G * 1024 != B:
-        pad = jnp.zeros((G * 1024 - B, W), windows.dtype)  # PAD_CLASS == 0
-        windows = jnp.concatenate([windows, pad], axis=0)
-    wt = windows.reshape(G, 8, 128, W).transpose(0, 3, 1, 2)
-    return wt.reshape(G * W * 8, 128), W, G
+    return jax.default_backend()
 
 
-def count_plan(compiled, dev, allow_block: bool = True,
-               force_batched: bool = False) -> EnginePlan:
+def _which(compiled, engine: Optional[str]) -> str:
+    from ahocorasick_tpu.ops import scan_rowdfa
+
+    return engine or scan_rowdfa.pick_engine(compiled, backend())
+
+
+def count_plan(compiled, dev, engine: Optional[str] = None) -> EnginePlan:
     """Plan for the fused COUNT kernels (popcount summed on device).
 
-    ``force_batched`` skips the row/block engines — the matchers'
-    ``device_engine="batched"`` cross-check knob, mirrored from
-    ``planes_plan`` so the knob governs BOTH scan paths."""
+    ``engine`` names the engine to run instead of ``pick_engine``'s choice
+    (the matchers' ``device_engine="batched"`` cross-check knob, and the
+    bench harness's per-engine cost measurement)."""
     from ahocorasick_tpu.ops import scan_batched, scan_rowdfa
 
     A = compiled.num_classes
-    which = ("batched" if force_batched
-             else scan_rowdfa.pick_engine(compiled, allow_block=allow_block))
+    which = _which(compiled, engine)
     if which == "block":
         from ahocorasick_tpu.kernels import scan_block
 
         bd = dev.block_dfa
-
-        def fn(tables, windows):
-            # Narrow (uint8/uint16) lanes feed Pallas directly: the kernel
-            # widens per-block (blk.astype), measured +5% over an up-front
-            # astype pass and exact on TPU + interpret mode.
-            wt, W, G = _regroup_in_jit(windows)
-            return scan_block.block_count(
-                tables[0], wt, bd.halo, bd.state_bits, bd.num_classes,
-                bd.num_blocks, W, G)
-
+        fn = lambda tables, w: scan_block.block_count(
+            tables[0], w, bd.halo, bd.state_bits, bd.num_classes)
         return EnginePlan("block", bd.halo, (bd.table,), fn)
     if which == "rowdfa2":
         rd = dev.row_dfa
@@ -95,33 +85,18 @@ def count_plan(compiled, dev, allow_block: bool = True,
     return EnginePlan("batched", pd.halo, (pd.table,), fn)
 
 
-def planes_plan(compiled, dev, allow_block: bool = True,
-                force_batched: bool = False) -> EnginePlan:
-    # NOTE: keyword-argument order matches count_plan exactly so the twin
-    # switches cannot be positionally confused.
-    """Plan for the END-indexed emit-plane kernels (``uint32[P, N]`` bits).
-
-    ``force_batched`` skips the row/block engines (the matchers'
-    ``device_engine="batched"`` cross-check knob); ``allow_block=False``
-    only excludes the Pallas block kernel (see ``pick_engine``)."""
+def planes_plan(compiled, dev, engine: Optional[str] = None) -> EnginePlan:
+    """Plan for the END-indexed emit-plane kernels (``uint32[P, N]`` bits);
+    ``engine`` as in ``count_plan``."""
     from ahocorasick_tpu.ops import scan_batched, scan_rowdfa
 
-    which = ("batched" if force_batched
-             else scan_rowdfa.pick_engine(compiled, allow_block=allow_block))
+    which = _which(compiled, engine)
     if which == "block":
         from ahocorasick_tpu.kernels import scan_block
 
         bd = dev.block_dfa
-
-        def fn(tables, windows):
-            # Narrow lanes straight into Pallas (see count_plan block fn).
-            wt, W, G = _regroup_in_jit(windows)
-            # Padded lanes (B rounded to G*1024 windows) trail the text;
-            # the extractor trims to the text length.
-            return scan_block.block_emit_planes(
-                tables[0], wt, bd.halo, bd.state_bits, bd.num_classes,
-                bd.num_blocks, W, G)
-
+        fn = lambda tables, w: scan_block.block_emit_planes(
+            tables[0], w, bd.halo, bd.state_bits, bd.num_classes)
         return EnginePlan("block", bd.halo, (bd.table,), fn)
     if which == "rowdfa2":
         rd = dev.row_dfa

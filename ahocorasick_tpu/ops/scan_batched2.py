@@ -1,8 +1,7 @@
 """Stride-2 batched DFA scan — one gather per TWO characters (engine v4b).
 
-Row gathers cost the same as element gathers on v5e (latency-bound), so a
-(S·A², 2)-shaped table delivers a two-character transition plus both
-positions' emit masks in a single gather:
+A (S·A², 2)-shaped table delivers a two-character transition plus both
+positions' emit masks in a single row gather:
 
     row[(s·A + c0)·A + c1] = [ state2 | emit_mask(state2) << state_bits,
                                emit_mask(state1) ]

@@ -1,10 +1,10 @@
-"""Failureless parallel trie scan — the flagship TPU engine.
+"""Failureless parallel trie scan (PFAC), engine v1.
 
 The reference's hot loop (``AhoCorasickSet.java:204-226``) is a sequential
 char-at-a-time walk whose fail links exist *only* so a single-threaded
-scanner never has to restart.  On TPU we invert the design: every text
+scanner never has to restart.  Here the design is inverted: every text
 position is an independent lane that walks the pure trie (no fail links)
-until it dies, all lanes in parallel on the VPU.  Every keyword occurrence
+until it dies, all lanes in parallel.  Every keyword occurrence
 starting at position ``i`` lies on the trie path spelled by ``text[i:]``, so
 the union of all lane emissions is exactly the all-matches output of the
 sequential automaton — with zero cross-lane dependencies, which is what lets

@@ -1,19 +1,19 @@
 """PFAC v2: the gather-minimized failureless scan.
 
 The v1 engine (``scan_pfac.py``) spends 2 gathers per lane per depth step
-(trie transition + is_match lookup).  Measured on TPU v5e, gathers are the
-entire cost (~36G/s), so v2 halves-then-thirds the gather count:
+(trie transition + is_match lookup).  Gathers are the whole cost of the
+walk, so v2 halves-then-thirds the gather count:
 
 * **Match-contiguous renumbering** — device-side state ids are permuted so
   root is 0 and all own-match states form the tail range
   ``[match_threshold, S)``.  ``is_match[s]`` becomes ``s >= threshold``: a
-  VPU compare, not a gather.  (Host tables keep canonical ids; the
+  compare, not a gather.  (Host tables keep canonical ids; the
   permutation is a device-layout concern, see ``models/matchers.py``.)
 * **Prefix-k jump table** — the first ``k`` depth steps from the root are
   precomputed for every k-gram of alphabet classes: ``prefix[(c0*A+c1)...]``
   packs the arrival state with the depth-1..k match bits in the top bits of
-  a uint32.  One gather into an ``A^k``-entry table (VMEM-resident for
-  compact alphabets) replaces ``2k`` table gathers.  ``k`` adapts to the
+  a uint32.  One gather into an ``A^k``-entry table (small for compact
+  alphabets) replaces ``2k`` table gathers.  ``k`` adapts to the
   alphabet so the table stays small.
 
 Work per lane for max depth d: ``1 + max(d - k, 0)`` gathers (v1: ``2d``).

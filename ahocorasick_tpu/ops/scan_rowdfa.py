@@ -150,36 +150,26 @@ def _select_col(rows: jax.Array, c1: jax.Array, A: int) -> jax.Array:
     return jnp.sum(jnp.where(oh, rows[:, :A], jnp.uint32(0)), axis=1)
 
 
-# Measured v5e per-character costs (ns) — docs/PERF.md "Engine lineage".
+# Per-character costs (ns) by engine: PLACEHOLDER_COSTS
 _NS_BATCHED = 8.5  # element gather
 _NS_ROWDFA1 = 2.4  # one row gather + one-hot select
-_NS_ROWDFA2 = 1.33  # one row gather per TWO characters (table <= 6 MB)
-# Measured 2026-08-21: a 10.7 MB stride-2 table runs 1.19 GB/s (1.68 ns) —
-# still VMEM-resident (the 16 MB cliff) but with less headroom for the
-# window blocks, so the rate degrades before the cliff.
-_NS_ROWDFA2_BIG = 1.68  # 6-16 MB stride-2 table
-_NS_BLOCK_BASE, _NS_BLOCK_PER_R = 0.19, 0.00179  # VPU select chain, R rounds
+_NS_ROWDFA2 = 1.33  # one row gather per TWO characters
+_NS_BLOCK = 0.2  # Pallas (Triton) kernel, character loop in-kernel
 
 
-def pick_engine(m: CompiledMatcher, allow_block: bool = True) -> str:
-    """Fastest applicable device engine by measured per-char cost model.
-
-    ``allow_block=False`` excludes the Pallas block kernel — used by the
-    sharded builders on non-TPU backends, where pallas runs in interpret
-    mode and a many-round select chain under shard_map is pathologically
-    slow (the CPU test mesh); every other engine is plain XLA."""
+def pick_engine(m: CompiledMatcher, backend: str) -> str:
+    """Fastest applicable device engine for ``backend`` by the per-char
+    cost table.  The block engine is a Triton kernel: it is a candidate
+    only on ``"gpu"``; every other engine is plain XLA."""
     from ahocorasick_tpu.kernels import scan_block
 
     cands = [("batched", _NS_BATCHED)]
     if fits1(m):
         cands.append(("rowdfa1", _NS_ROWDFA1))
     if fits(m):
-        S, A = effective_rows(m), m.num_classes
-        small = S * A * (A + 1) * 4 <= (6 << 20)
-        cands.append(("rowdfa2", _NS_ROWDFA2 if small else _NS_ROWDFA2_BIG))
-    if allow_block and scan_block.fits(m):
-        R = -(-(effective_rows(m) * m.num_classes) // 128)
-        cands.append(("block", _NS_BLOCK_BASE + _NS_BLOCK_PER_R * R))
+        cands.append(("rowdfa2", _NS_ROWDFA2))
+    if backend == "gpu" and scan_block.fits(m):
+        cands.append(("block", _NS_BLOCK))
     return min(cands, key=lambda kv: kv[1])[0]
 
 

@@ -2,7 +2,7 @@
 
 ``WholeWordLongestMatchSet.match`` (reference :47-178) restarts its trie walk
 at a position that depends on where the *previous* walk died — an inherently
-sequential chain.  The TPU decomposition: compute, for **every** lane in
+sequential chain.  The parallel decomposition: compute, for **every** lane in
 parallel, the full outcome of "a walk starting here": the die position, and
 the single match that walk would emit (own match or carried fail match per
 the reference's rules).  The sequential chain then reduces to following a

@@ -2,7 +2,7 @@
 
 The reference's stream mode proves that automaton state across a buffer
 boundary is a single node pointer (``AhoCorasickMap.java:208-275``).  The
-TPU generalization: split the text into C chunks, compute for every chunk
+parallel generalization: split the text into C chunks, compute for every chunk
 the *state map* sigma_c : S -> S ("if I enter this chunk in state s, I leave
 in sigma_c[s]") by scanning all S lanes at once, then compose the maps with
 ``jax.lax.associative_scan`` — function composition over a finite domain is

@@ -1,7 +1,7 @@
 """Batch corpus scanning: many documents, device batching, idempotent retry.
 
 The reference is a synchronous single-call library; its failure story is
-"exceptions propagate" (SURVEY.md §5).  At TPU scale the unit of failure is
+"exceptions propagate" (SURVEY.md §5).  At device scale the unit of failure is
 a document shard, and because matchers are pure functions of (tables, text),
 the correct recovery is simply to re-scan the failed shard — implemented
 here as bounded idempotent retries with the gold engine as the terminal

@@ -21,7 +21,7 @@ with length at most ``level`` at its own end, so every future candidate
 never displace) a flushed entry.  Flushing everything once at the end
 produces the identical output sequence, including under early-stop
 listeners, because deliveries always happen in queue (start-ascending)
-order.  This lets the TPU pipeline gather all candidates in parallel first
+order.  This lets the device pipeline gather all candidates in parallel first
 and resolve afterwards.
 """
 

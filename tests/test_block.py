@@ -1,8 +1,8 @@
-"""Pallas block-gather engine (v8) conformance: exact vs gold.
+"""Triton block engine conformance: exact vs gold.
 
-Runs in interpret mode on CPU (the kernel auto-detects the backend); the
-same code path compiles via Mosaic on TPU (bench'd at 4.7 GB/s for the
-100-keyword config).
+The kernel runs here in Pallas interpret mode on the CPU (``interpret=True``
+is asked for explicitly); ``tests/test_gpu.py`` runs the same kernel as
+compiled for the card against the XLA engines.
 """
 
 import numpy as np
@@ -10,92 +10,85 @@ import pytest
 
 import jax.numpy as jnp
 
+from ahocorasick_tpu.core import gold
 from ahocorasick_tpu.core.compiler import compile_matcher
 from ahocorasick_tpu.kernels import scan_block
 from ahocorasick_tpu.models.matchers import AhoCorasickSet, _DeviceTables
-from ahocorasick_tpu.ops import scan_batched, scan_rowdfa
+from ahocorasick_tpu.ops import dispatch, scan_batched, scan_rowdfa
+
+
+def _block_args(m, cls, chunk):
+    bd = _DeviceTables(m).block_dfa
+    windows = scan_batched.chunk_classes(cls, chunk, bd.halo, m.num_classes)
+    return (bd.table, jnp.asarray(windows), bd.halo, bd.state_bits,
+            bd.num_classes)
 
 
 def block_triples(keywords, text, chunk, case_sensitive=True, kind="ac"):
     m = compile_matcher(keywords, kind, case_sensitive)
-    dev = _DeviceTables(m)
     cls = m.charmap[np.frombuffer(text.encode("utf-16-le"), dtype=np.uint16)]
     assert scan_block.fits(m)
-    bd = dev.block_dfa
-    windows = scan_batched.chunk_classes(cls, chunk, bd.halo)
-    W = windows.shape[1]
-    wt = jnp.asarray(scan_block.regroup_windows(windows))
-    G = wt.shape[0] // (W * 8)
-    bits = scan_block.block_emit_planes(
-        bd.table, wt, bd.halo, bd.state_bits, bd.num_classes, bd.num_blocks, W, G
-    )
+    bits = scan_block.block_emit_planes(*_block_args(m, cls, chunk),
+                                        interpret=True)
     return scan_batched.ac_matches_batched(m, cls, np.asarray(bits)), m
+
+
+def _spans(m, text):
+    return [(a, b) for a, b, _ in gold.gold_match(m, text)]
 
 
 @pytest.mark.parametrize("chunk", [8, 64, 512])
 def test_exact_vs_gold(chunk):
-    from ahocorasick_tpu.core import gold
-
     keywords = ["he", "she", "his", "hers", "ushers"]
     text = "ushers said heshe hishers " * 4
     (s, e, v), m = block_triples(keywords, text, chunk)
-    expected = gold.gold_match(m, text)
-    assert list(zip(s.tolist(), e.tolist())) == [(a, b) for a, b, _ in expected]
+    assert list(zip(s.tolist(), e.tolist())) == _spans(m, text)
 
 
 def test_count_kernel_vs_gold():
-    from ahocorasick_tpu.core import gold
-
     keywords = ["ab", "b", "aab"]
     rng = np.random.default_rng(5)
     text = "".join(rng.choice(list("ab "), size=1501))
     m = compile_matcher(keywords, "ac", True)
-    dev = _DeviceTables(m)
     cls = m.charmap[np.frombuffer(text.encode("utf-16-le"), dtype=np.uint16)]
-    bd = dev.block_dfa
-    windows = scan_batched.chunk_classes(cls, 64, bd.halo)
-    W = windows.shape[1]
-    wt = jnp.asarray(scan_block.regroup_windows(windows))
-    G = wt.shape[0] // (W * 8)
-    total = int(scan_block.block_count(
-        bd.table, wt, bd.halo, bd.state_bits, bd.num_classes, bd.num_blocks, W, G))
+    total = int(scan_block.block_count(*_block_args(m, cls, 64),
+                                       interpret=True))
     assert total == len(gold.gold_match(m, text))
 
 
-def test_multi_grid_steps():
-    """Text long enough for several grid steps (B > 1024 windows)."""
-    from ahocorasick_tpu.core import gold
-
+def test_multi_program_blocks():
+    """Text long enough for several programs (B > 128 windows), with a
+    window count that is not a multiple of the program width."""
     rng = np.random.default_rng(11)
-    text = "".join(rng.choice(list("ab "), size=1030 * 8))
+    text = "".join(rng.choice(list("ab "), size=130 * 8 + 3))
     (s, e, _), m = block_triples(["ab", "ba", "aab"], text, 8)
-    expected = gold.gold_match(m, text)
-    assert list(zip(s.tolist(), e.tolist())) == [(a, b) for a, b, _ in expected]
+    assert list(zip(s.tolist(), e.tolist())) == _spans(m, text)
 
 
-def test_pick_engine_prefers_block_for_small_dicts():
+def test_pick_engine_prefers_block_for_small_dicts_on_gpu():
     m = compile_matcher(["he", "she", "hers"], "ac", True)
-    assert scan_rowdfa.pick_engine(m) == "block"
-    # big flat table -> not block
-    import ahocorasick_tpu.kernels.scan_block as sb
-    orig = sb.MAX_ENTRIES
+    assert scan_rowdfa.pick_engine(m, "gpu") == "block"
+    assert scan_rowdfa.pick_engine(m, "cpu") != "block"
+    # a table past the coverage bound -> not block, on any backend
+    orig = scan_block.MAX_ENTRIES
     try:
-        sb.MAX_ENTRIES = 4
-        assert scan_rowdfa.pick_engine(m) == "rowdfa2"
+        scan_block.MAX_ENTRIES = 4
+        assert scan_rowdfa.pick_engine(m, "gpu") != "block"
     finally:
-        sb.MAX_ENTRIES = orig
+        scan_block.MAX_ENTRIES = orig
 
 
-def test_facade_small_dict_goes_through_block():
+def test_facade_small_dict_on_cpu_takes_xla_engine():
     kws = ["he", "she", "his", "hers"]
     dev_m = AhoCorasickSet(kws, engine="device")
     gold_m = AhoCorasickSet(kws, engine="gold")
     text = "ushers and she said he hishe"
     assert dev_m.match(text) == gold_m.match(text)
-    assert scan_rowdfa.pick_engine(dev_m.compiled) == "block"
+    assert dispatch.planes_plan(dev_m.compiled, dev_m.dev).which != "block"
+    assert dispatch.count_plan(dev_m.compiled, dev_m.dev).which != "block"
 
 
-def test_facade_fuzz_block_vs_gold():
+def test_fuzz_block_vs_gold():
     rng = np.random.default_rng(31)
     for trial in range(6):
         kws = list({
@@ -103,6 +96,5 @@ def test_facade_fuzz_block_vs_gold():
             for _ in range(int(rng.integers(1, 12)))
         })
         text = "".join(rng.choice(list("abc "), size=int(rng.integers(1, 400))))
-        dev_m = AhoCorasickSet(kws, engine="device")
-        gold_m = AhoCorasickSet(kws, engine="gold")
-        assert dev_m.match(text) == gold_m.match(text), (trial, kws)
+        (s, e, _), m = block_triples(kws, text, 64)
+        assert list(zip(s.tolist(), e.tolist())) == _spans(m, text), (trial, kws)

@@ -54,7 +54,7 @@ def test_scan_corpus_raises_when_even_gold_fails():
 
 def test_determinism_across_runs_and_engines():
     """Same input => identical match arrays across runs and engines (the
-    TPU analog of the reference's immutability thread-safety note)."""
+    device analog of the reference's immutability thread-safety note)."""
     rng = np.random.default_rng(11)
     kws = ["ab", "ba", "aab", "b", "abab"]
     text = "".join(rng.choice(list("ab "), size=4000))

@@ -28,14 +28,20 @@ def _text(m, n_units=20000, seed=5):
 
 
 def test_small_dictionary_plans_pick_block():
+    """A small dictionary picks the Triton block kernel on the GPU; on this
+    (CPU) backend both plans take a plain XLA engine instead."""
+    from ahocorasick_tpu.ops import scan_rowdfa
+
     m, _ = _matcher(200)
-    assert dispatch.count_plan(m.compiled, m.dev).which == "block"
-    assert dispatch.planes_plan(m.compiled, m.dev).which == "block"
+    assert scan_rowdfa.pick_engine(m.compiled, "gpu") == "block"
+    assert dispatch.backend() == "cpu"
+    assert dispatch.count_plan(m.compiled, m.dev).which != "block"
+    assert dispatch.planes_plan(m.compiled, m.dev).which != "block"
 
 
 def test_force_batched_overrides_pick():
     m, _ = _matcher(200)
-    plan = dispatch.planes_plan(m.compiled, m.dev, force_batched=True)
+    plan = dispatch.planes_plan(m.compiled, m.dev, "batched")
     assert plan.which in ("batched", "split")
 
 
@@ -68,7 +74,7 @@ def test_forced_batched_plan_matches_picked_plan():
     text = _text(m)
     cls = m._classes(text)
     picked = dispatch.planes_plan(m.compiled, m.dev)
-    forced = dispatch.planes_plan(m.compiled, m.dev, force_batched=True)
+    forced = dispatch.planes_plan(m.compiled, m.dev, "batched")
     wp = jnp.asarray(scan_batched.chunk_classes(cls, 512, picked.halo))
     wf = jnp.asarray(scan_batched.chunk_classes(cls, 512, forced.halo))
     bp = np.asarray(picked.fn(picked.tables, wp))[:, : len(cls)]

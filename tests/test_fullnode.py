@@ -111,9 +111,8 @@ def test_full_node_quotient_packed_layout(full_set):
 
 
 def test_full_node_device_engine(full_set):
-    # Device engine on the quotient table (batched element-gather engine:
-    # the Pallas block kernel would also apply but is slow to build in CPU
-    # interpret mode at this R).
+    # Device engine on the quotient table (batched element-gather engine,
+    # pinned through the cross-check knob).
     m = AhoCorasickSet(FULL_KWS, engine="device")
     m.device_engine = "batched"
     text = _text(1200)
@@ -132,13 +131,12 @@ def test_row_compressed_shortest_device_engine(monkeypatch):
     # SHORTEST rides the candidates-then-resolve path: its internal AC
     # automaton over the (here: single-char) survivors has a packable
     # quotient DFA, so even the full-alphabet extreme scans on device.
-    # (The production pick is the Pallas block kernel; its CPU interpret
-    # mode is far too slow for CI, so pin the XLA batched engine here —
-    # the block engine itself is pinned by test_block.py.)
+    # (Pinned to the XLA batched engine; the GPU pick, the Triton block
+    # kernel, is covered by test_block.py and test_gpu.py.)
     from ahocorasick_tpu.ops import scan_rowdfa
 
     monkeypatch.setattr(scan_rowdfa, "pick_engine",
-                    lambda m, allow_block=True: "batched")
+                    lambda m, backend: "batched")
     m = ShortestMatchSet(FULL_KWS, engine="device")
     text = _text(800)
     got = m.match(text)
@@ -228,10 +226,9 @@ def test_sharded_counter_row_compressed(monkeypatch):
     from ahocorasick_tpu.parallel import sharding
 
     monkeypatch.setattr(comp, "_DENSE_LIMIT", 4)
-    # Pin the engine: the natural pick for tiny quotients is the Pallas
-    # block kernel, which is slow to build in CPU interpret mode.
+    # Pin the engine: the batched element-gather scan of the quotient.
     monkeypatch.setattr(scan_rowdfa, "pick_engine",
-                    lambda m, allow_block=True: "batched")
+                    lambda m, backend: "batched")
     rng = np.random.default_rng(43)
     kws = ["ab", "bca", "a", "cc"]
     text = "".join(rng.choice(list("abcde "), size=4000))
@@ -321,8 +318,8 @@ def test_count_force_batched_knob(monkeypatch):
 
     m = AhoCorasickSet(["he", "she", "hers"], engine="device")
     picked = dispatch.count_plan(m.compiled, m.dev)
-    forced = dispatch.count_plan(m.compiled, m.dev, force_batched=True)
-    assert picked.which == "block" and forced.which == "batched"
+    forced = dispatch.count_plan(m.compiled, m.dev, "batched")
+    assert picked.which != "batched" and forced.which == "batched"
     text = "ushers she he " * 500
     m.device_engine = "batched"
     assert m.count(text) == len(AhoCorasickSet(["he", "she", "hers"], engine="gold").match(text))

@@ -121,11 +121,11 @@ def test_make_sharded_counter_all_tiers():
 
     for label, kws in cases.items():
         m = AhoCorasickSet(kws, engine="gold")
-        # Sharded builders exclude the Pallas block engine off-TPU
-        # (interpret mode under shard_map; see pick_engine docstring).
-        which = scan_rowdfa.pick_engine(m.compiled, allow_block=False)
+        # The CPU test mesh runs the XLA pick; the same dictionary picks
+        # the Triton block kernel on a GPU.
+        which = scan_rowdfa.pick_engine(m.compiled, "cpu")
         if label == "block":
-            assert scan_rowdfa.pick_engine(m.compiled) == "block"
+            assert scan_rowdfa.pick_engine(m.compiled, "gpu") == "block"
         if label == "batched":
             assert which == "batched"
         text = "".join(rng.choice(list("abhersx "), size=7001))

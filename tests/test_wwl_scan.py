@@ -301,10 +301,9 @@ def test_host_walks_at_matches_walk_engine():
 
 
 def test_fused_kernel_equals_sweep():
-    """The fused die-sweep-in-carry kernel (the round-5 measured ablation,
-    docs/PERF.md — kept in-tree with FUSED_DEFAULT=False after losing the
-    v5e A/B) must stay output-identical to the sweep kernel, pure and
-    mixed."""
+    """The fused die-sweep-in-carry kernel (``scan_wwl.FUSED_DEFAULT``
+    chooses between it and the sweep; PERF.md) must stay output-identical
+    to the sweep kernel, pure and mixed."""
     import jax.numpy as jnp
 
     from ahocorasick_tpu.ops import scan_batched
