@@ -257,7 +257,7 @@ def baseline_suite(full: bool, reps: int, seed: int) -> None:
     # 6: wide-alphabet full-node (the reference testFullNode extreme,
     # SetTest.java:73-79): ~54Ki single-char keywords compile to a
     # row-compressed automaton; the device path scans the packed QUOTIENT
-    # DFA (2 distinct rows) — Pallas block / batched engines.
+    # DFA (2 distinct rows) — batched engine.
     kws6 = [chr(c) for c in range(32, 0xD800)]
     text6 = "".join(
         chr(int(x)) for x in rng.integers(32, 0xD800, size=1 << 20)

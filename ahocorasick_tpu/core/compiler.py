@@ -4,8 +4,8 @@ This is the device-oriented replacement for the reference's eight per-matcher
 construction pipelines (canonical copy: ``AhoCorasickSet.java:20-191``).
 Where the reference builds a pointer-linked trie with per-node hashmap/range
 storage and walks fail links at match time, we compile everything down to a
-handful of dense ``int32`` arrays once, so every engine (XLA scan, Pallas
-kernel, sharded multi-chip scan) is a pure gather program over static shapes:
+handful of dense ``int32`` arrays once, so every engine (XLA scan, sharded
+multi-device scan) is a pure gather program over static shapes:
 
 * ``charmap``   — UTF-16 unit -> compact alphabet class (case folding and
   word-character classification baked in; moral heir of the reference's

@@ -3,7 +3,7 @@
 Each function mirrors one reference match loop statement-for-statement in
 plain Python over the compiled tables, and returns the full ordered list of
 ``(start, end, value_id)`` triples (UTF-16 unit offsets, ``end`` exclusive,
-``value_id`` is -1 for set matchers).  Device engines (XLA / Pallas /
+``value_id`` is -1 for set matchers).  Device engines (XLA /
 sharded) are conformance-tested against these outputs byte-for-byte.
 
 Reference loops mirrored here:

@@ -198,8 +198,8 @@ class _CandidateSource:
     The automaton is d-synchronizing (``ops/scan_batched`` module doc): the
     state at any position is a function of the last ``d`` consumed units.
     Carrying the last ``d`` *classes* (the tail) therefore replaces carrying
-    the state id, and lets every feed ride the same parallel batched/rowdfa/
-    block engines as batch mode — the warmup for the feed's first lane is
+    the state id, and lets every feed ride the same parallel batched/rowdfa
+    engines as batch mode — the warmup for the feed's first lane is
     the real tail instead of PAD, and candidates ending in the tail region
     (already delivered last feed) are dropped.  Small feeds use the jitted
     sequential scan over tail+feed from the root, which is exact by the same
@@ -963,7 +963,7 @@ class _WordCursor:
 
 def make_cursor(m: CompiledMatcher, dev=None, engine: str = "auto", ac=None):
     """``dev``: device table cache (``models.matchers._DeviceTables``) —
-    enables the parallel batched/rowdfa/block engines for large feeds.
+    enables the parallel batched/rowdfa engines for large feeds.
     ``ac``: SHORTEST only — ``(ac_compiled, ac_dev, cls_map)`` for the
     internal AC automaton over insert survivors."""
     if m.kind == AC:
@@ -998,9 +998,9 @@ def make_cursor(m: CompiledMatcher, dev=None, engine: str = "auto", ac=None):
 
 
 def _default_backend_is_accelerator() -> bool:
-    from ahocorasick_tpu.ops import dispatch
+    import jax
 
-    return dispatch.backend() != "cpu"
+    return jax.default_backend() != "cpu"
 
 
 class StreamScanner:

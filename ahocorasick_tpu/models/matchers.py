@@ -52,7 +52,7 @@ def _device_capable(compiled: CompiledMatcher, kind: str) -> bool:
 
     Dense matchers: always (packed or split layout).  Row-compressed
     (wide-alphabet) matchers: only the kinds whose device path is the packed
-    batched/row/block scan over the quotient DFA (``ops/scan_batched``);
+    batched/row scan over the quotient DFA (``ops/scan_batched``);
     WHOLE_WORD_LONGEST rides the scan-based walk engine over the quotient
     DFA when the trie is word-uniform (``ops/scan_wwl.scan_applicable``),
     else the (vectorized) host path.  SHORTEST scans as an AC automaton over
@@ -96,8 +96,7 @@ def _auto_min_units(compiled: CompiledMatcher) -> int:
     huge split/hotstate tables, whose upload grows with table bytes, 64Ki.
     These thresholds were not measured on the card.
     """
-    from ahocorasick_tpu.kernels import scan_block
-    from ahocorasick_tpu.ops import scan_batched, scan_rowdfa
+    from ahocorasick_tpu.ops import scan_batched
 
     if compiled.dfa_next is None:
         return _AUTO_DEVICE_MIN_UNITS
@@ -105,7 +104,7 @@ def _auto_min_units(compiled: CompiledMatcher) -> int:
     table_bytes = rows * compiled.num_classes * 4
     if table_bytes > (48 << 20):
         return 1 << 16
-    if scan_block.fits(compiled) or scan_rowdfa.fits1(compiled):
+    if table_bytes <= (16 << 20) and scan_batched.inline_packable(compiled):
         return 1 << 12
     return _AUTO_DEVICE_MIN_UNITS
 # Lane counts are rounded up to this bucket so repeated calls with different
@@ -331,19 +330,6 @@ class _DeviceTables:
             flat, state_bits, halo = scan_batched.build_count_packed(self._m)
             cache["count_packed_dfa"] = (jnp.asarray(flat), state_bits, halo)
         return cache["count_packed_dfa"]
-
-    @property
-    def block_dfa(self):
-        """Flat VPU-lookup table for the Pallas block engine (v8; lazy)."""
-        cache = self.__dict__["_cache"]
-        if "block_dfa" not in cache:
-            import jax.numpy as jnp
-
-            from ahocorasick_tpu.kernels import scan_block
-
-            bd = scan_block.build_block(self._m)
-            cache["block_dfa"] = bd._replace(table=jnp.asarray(bd.table))
-        return cache["block_dfa"]
 
     @property
     def packed_dfa(self):
@@ -741,8 +727,8 @@ def _wwl_compact_lanes(compiled: CompiledMatcher, cls: np.ndarray):
 class _PfacEngine(_Matcher):
     """All-candidates parallel scan; AC emits directly, Longest resolves.
 
-    Default device path is the engine ``ops/dispatch`` picks (block /
-    row-gather / batched-halo DFA scan, one table lookup per character);
+    Default device path is the engine ``ops/dispatch`` picks (row-gather /
+    batched-halo DFA scan, one table lookup per character);
     the PFAC v2 walk engine remains available via
     ``device_engine="pfac2"`` for cross-checking.
     """
@@ -911,7 +897,7 @@ class ShortestMatchSet(_Matcher):
     characters), so it cannot ride the parallel halo-warmup engines
     directly.  Instead we scan a plain AC automaton over the
     insert-surviving keywords with the SAME fast engines every other kind
-    uses (``pick_engine``: block / rowdfa / batched), then run the exact
+    uses (``pick_engine``: rowdfa / batched), then run the exact
     min-end greedy resolve (``resolve.queue.resolve_shortest`` — the
     equivalence argument lives on that docstring).  ``save`` bundles the
     internal AC automaton into the one npz artifact and ``load_matcher``

@@ -12,10 +12,6 @@ Window contract: every ``fn(tables, windows)`` takes ``int[B, halo + C]``
 windows as built by ``scan_batched.chunk_classes(cls, chunk, plan.halo)``
 (left halo warmup, PAD_CLASS padding).  ``chunk`` must be even (the
 stride-2 engine pairs characters; 512 everywhere).
-
-The backend the engines compile for is read here once (``backend``) and
-handed to ``pick_engine``, so the facade, the stream cursors, the bench
-harness and the sharded fronts all make the same pick.
 """
 
 from __future__ import annotations
@@ -24,23 +20,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 
 class EnginePlan(NamedTuple):
-    which: str  # block | rowdfa2 | rowdfa1 | batched | split | packedcount | hotstate
+    which: str  # rowdfa2 | rowdfa1 | batched | split | packedcount | hotstate
     halo: int  # left-halo length for chunk_classes
     tables: Tuple  # device (jnp) arrays; pass back as fn(tables, windows)
     fn: Callable  # fn(tables, windows) -> int32 count | uint32[P, N] planes
-
-
-def backend() -> str:
-    """The JAX backend the device engines run on ("gpu", "cpu", ...)."""
-    import jax
-
-    return jax.default_backend()
-
-
-def _which(compiled, engine: Optional[str]) -> str:
-    from ahocorasick_tpu.ops import scan_rowdfa
-
-    return engine or scan_rowdfa.pick_engine(compiled, backend())
 
 
 def count_plan(compiled, dev, engine: Optional[str] = None) -> EnginePlan:
@@ -52,14 +35,7 @@ def count_plan(compiled, dev, engine: Optional[str] = None) -> EnginePlan:
     from ahocorasick_tpu.ops import scan_batched, scan_rowdfa
 
     A = compiled.num_classes
-    which = _which(compiled, engine)
-    if which == "block":
-        from ahocorasick_tpu.kernels import scan_block
-
-        bd = dev.block_dfa
-        fn = lambda tables, w: scan_block.block_count(
-            tables[0], w, bd.halo, bd.state_bits, bd.num_classes)
-        return EnginePlan("block", bd.halo, (bd.table,), fn)
+    which = engine or scan_rowdfa.pick_engine(compiled)
     if which == "rowdfa2":
         rd = dev.row_dfa
         fn = lambda tables, w: scan_rowdfa.rowdfa_count(
@@ -90,14 +66,7 @@ def planes_plan(compiled, dev, engine: Optional[str] = None) -> EnginePlan:
     ``engine`` as in ``count_plan``."""
     from ahocorasick_tpu.ops import scan_batched, scan_rowdfa
 
-    which = _which(compiled, engine)
-    if which == "block":
-        from ahocorasick_tpu.kernels import scan_block
-
-        bd = dev.block_dfa
-        fn = lambda tables, w: scan_block.block_emit_planes(
-            tables[0], w, bd.halo, bd.state_bits, bd.num_classes)
-        return EnginePlan("block", bd.halo, (bd.table,), fn)
+    which = engine or scan_rowdfa.pick_engine(compiled)
     if which == "rowdfa2":
         rd = dev.row_dfa
         fn = lambda tables, w: scan_rowdfa.rowdfa_emit_planes(

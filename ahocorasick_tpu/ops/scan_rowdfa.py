@@ -1,23 +1,10 @@
 """Row-gather DFA scans — whole-row gathers + fused column select (v6/v7).
 
-Probe data (tools/probes/probe3, /probe4) on the real v5e:
-
-* XLA *element* gathers serialize at ~73-120 M lookups/s regardless of
-  batch size or table size — the envelope that capped the v4 engine.
-* XLA *row* gathers (whole aligned row per index) from a table that fits
-  on-chip run at ~375-430 M rows/s — 5x faster — because XLA places the
-  operand in VMEM and the per-row access pipelines.  The same row gather
-  from a 268 MB HBM table drops to ~29 M rows/s, so VMEM fit is the gate.
-* The per-lane column select after the row gather must be a one-hot
-  multiply-reduce (fuses into the gather consumer); ``take_along_axis``
-  would lower to another element gather (97 M/s).
-
 Two engines share this file:
 
 v7 ``rowdfa1`` — stride 1: gather ``row = table[s]`` (the v4 packed table,
-rows unpadded so the table stays VMEM-small), select column ``c``.  One row
-gather per character: ~375 M chars/s for any dictionary whose packed table
-fits VMEM (~10 MB, i.e. ~75k states at 32 padded classes).
+rows padded to x8 / columns to a power of two), select column ``c`` with a
+fused one-hot reduce.  One row gather per character.
 
 v6 ``rowdfa2`` — stride 2: rows indexed by ``(s, c0)``:
 
@@ -26,11 +13,13 @@ v6 ``rowdfa2`` — stride 2: rows indexed by ``(s, c0)``:
 where state1 = delta(s, c0), state2 = delta(state1, c1); the fixed last
 column carries emit1 = emit_mask(state1) — a pure function of the row
 index — so ONE gather yields both positions' emit masks and the next
-state.  Two characters per row gather: ~750 M chars/s, but the table is
-S·A·(A+1)·4 bytes, so only small dictionaries (~2k states) qualify.
+state.  Two characters per row gather, but the table is S·A·(A+1)·4
+bytes.
 
-Semantics are identical to ``scan_batched`` (same d-synchronizing halo
-warmup, END-indexed emit bitplanes; reference hot loop
+``pick_engine`` chooses among these and the batched element-gather scan
+(``scan_batched``) by per-character cost measured on the card.  Semantics
+are identical to ``scan_batched`` (same d-synchronizing halo warmup,
+END-indexed emit bitplanes; reference hot loop
 ``AhoCorasickSet.java:204-226``, suffix-chain emits ``:522-535``).
 """
 
@@ -48,17 +37,16 @@ from jax import lax
 from ahocorasick_tpu.core.compiler import CompiledMatcher
 from ahocorasick_tpu.ops.scan_batched import PAD_CLASS, build_packed, effective_rows
 
-# Measured VMEM-residency cliff (tools/probes/probe7.py part A, real v5e):
-# the row-gather rate holds 385-390 M rows/s through a 16 MB table and
-# drops to ~110-118 M rows/s at 32 MB+ (XLA stops staging the operand in
-# VMEM).  Budgets sit at the measured-good 16 MB.
-_MAX_BYTES = 16 << 20      # stride-2 table budget
-_MAX_BYTES_1 = 16 << 20    # stride-1 table budget
-# The fused column select does A_pad one-hot ops per character per lane; the
-# measured cost model holds for narrow alphabets (the dense-matcher norm).
-# Wide-alphabet quotient tables (few rows x tens of thousands of classes)
-# must not ride it — the select would dwarf the gather.
-_MAX_SELECT_CLASSES = 512
+# Stride-2 table budget: the largest stride-2 table measured on the card,
+# 156 MB (10k keywords), scanned at the small-table rate (0.081 vs 0.078
+# ns/char at 2 MB; H100 80GB HBM3, 400 W power limit).  Larger tables were
+# not measured.
+_MAX_BYTES = 160 << 20
+# The fused column select does A_pad one-hot ops per character per lane.
+# On the card rowdfa2 beat batched at 27 classes (0.076 vs 0.119 ns/char)
+# and lost from 63 classes up (0.113 vs 0.110 at 63, 0.184 vs 0.160 at
+# 511; H100 80GB HBM3, 700 W power limit); 28-62 classes not measured.
+_MAX_SELECT_CLASSES = 32
 
 
 class RowDfa(NamedTuple):
@@ -76,7 +64,7 @@ class RowDfa1(NamedTuple):
 
 
 def fits(m: CompiledMatcher, max_bytes: int | None = None) -> bool:
-    """Stride-2 row table fits the VMEM budget."""
+    """Stride-2 row table fits the budget."""
     if max_bytes is None:
         max_bytes = _MAX_BYTES
     S, A = effective_rows(m), m.num_classes
@@ -89,20 +77,15 @@ def fits(m: CompiledMatcher, max_bytes: int | None = None) -> bool:
     )
 
 
-def fits1(m: CompiledMatcher, max_bytes: int | None = None) -> bool:
-    """Stride-1 row table fits the VMEM budget."""
-    if max_bytes is None:
-        max_bytes = _MAX_BYTES_1
+def fits1(m: CompiledMatcher) -> bool:
+    """Stride-1 row engine applies: packed-inline layout and an alphabet
+    the one-hot select admits (no size budget: the card showed no cliff,
+    0.146 -> 0.148 ns/char from an 87 KB to a 59 MB table)."""
     S, A = effective_rows(m), m.num_classes
     d = max(m.max_depth, 1)
     state_bits = max(int(S - 1).bit_length(), 1)
     Ap = max(8, 1 << (A - 1).bit_length())
-    Sp = -(-(S) // 8) * 8
-    return (
-        state_bits + d <= 32
-        and Ap <= _MAX_SELECT_CLASSES
-        and Sp * Ap * 4 <= max_bytes
-    )
+    return state_bits + d <= 32 and Ap <= _MAX_SELECT_CLASSES
 
 
 def build_rowdfa1(m: CompiledMatcher) -> RowDfa1:
@@ -150,26 +133,24 @@ def _select_col(rows: jax.Array, c1: jax.Array, A: int) -> jax.Array:
     return jnp.sum(jnp.where(oh, rows[:, :A], jnp.uint32(0)), axis=1)
 
 
-# Per-character costs (ns) by engine: PLACEHOLDER_COSTS
-_NS_BATCHED = 8.5  # element gather
-_NS_ROWDFA1 = 2.4  # one row gather + one-hot select
-_NS_ROWDFA2 = 1.33  # one row gather per TWO characters
-_NS_BLOCK = 0.2  # Pallas (Triton) kernel, character loop in-kernel
+# Per-character kernel cost (ns) by engine, measured on the card with data
+# on the device (``bench.ac_kernel_rate``, ``tools/engine_costs.py``) at the
+# headline shape: 10k keywords, 32 Mi units; H100 80GB HBM3, 400 W power
+# limit (a 700 W card read 0.119 / 0.134 / 0.076).  Every engine steps one
+# character (rowdfa2: two) per ``lax.scan`` iteration, so the per-step
+# loop, not the table bytes, sets the cost.
+_NS_BATCHED = 0.129  # one element gather per character
+_NS_ROWDFA1 = 0.142  # one row gather + one-hot select
+_NS_ROWDFA2 = 0.081  # one row gather per TWO characters
 
 
-def pick_engine(m: CompiledMatcher, backend: str) -> str:
-    """Fastest applicable device engine for ``backend`` by the per-char
-    cost table.  The block engine is a Triton kernel: it is a candidate
-    only on ``"gpu"``; every other engine is plain XLA."""
-    from ahocorasick_tpu.kernels import scan_block
-
+def pick_engine(m: CompiledMatcher) -> str:
+    """Cheapest applicable device engine by the per-character cost table."""
     cands = [("batched", _NS_BATCHED)]
     if fits1(m):
         cands.append(("rowdfa1", _NS_ROWDFA1))
     if fits(m):
         cands.append(("rowdfa2", _NS_ROWDFA2))
-    if backend == "gpu" and scan_block.fits(m):
-        cands.append(("block", _NS_BLOCK))
     return min(cands, key=lambda kv: kv[1])[0]
 
 

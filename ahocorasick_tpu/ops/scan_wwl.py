@@ -571,8 +571,12 @@ def host_walks_at(m, cls_p: np.ndarray, starts: np.ndarray, d: int):
             end.astype(np.int32), val.astype(np.int32))
 
 
-# Row-layout gate mirrors scan_rowdfa.fits1 (measured VMEM cliff).
-_ROW_MAX_BYTES = 16 << 20
+# Row layout: (Sp, Ap) rows read by a row gather + one-hot select, for
+# alphabets up to _ROW_MAX_CLASSES; the flat layout otherwise.  No size
+# budget: the card showed no cliff (fused kernel 1.78-1.79 GB/s with a
+# 1.5 MB row table, 1.84-1.85 GB/s with 59 MB; H100 80GB HBM3, 700 W power
+# limit).  The flat layout read 2-4% faster at both sizes (two turns each;
+# not acted on here).
 _ROW_MAX_CLASSES = 512
 
 
@@ -618,7 +622,7 @@ def _pack_wwl_scan(m, packed, rows_flat, id_bits, depth_bits, d, A,
     Ap = max(8, 1 << (A - 1).bit_length())
     Sr = packed.shape[0]
     Sp = -(-Sr // 8) * 8
-    row_layout = Ap <= _ROW_MAX_CLASSES and Sp * Ap * 4 <= _ROW_MAX_BYTES
+    row_layout = Ap <= _ROW_MAX_CLASSES
     if row_layout:
         t = np.zeros((Sp, Ap), dtype=np.uint32)
         t[:Sr, :A] = packed
@@ -717,9 +721,7 @@ def wwl_scan_walks(
     # Compact to the requested starts.  Pack (k_die, die_word[, cross]
     # [, prev]) into one plane when the bits fit so padded-lane gathers
     # stay cheap, and fetch it with 16-wide ROW gathers + a fused one-hot
-    # column select: element gathers run ~140 M/s on v5e while VMEM-
-    # resident row gathers run ~385 M rows/s (probe3/probe7) — a ~2.5x cut
-    # on the compaction.
+    # column select (``_plane_take``).
     idmask = jnp.uint32((1 << id_bits) - 1)
     kd_bits = max(int(d).bit_length(), 1)
     nflag = 2 if cross else 1  # die-word [+ cross] bits above kd
@@ -851,13 +853,11 @@ def fused_applicable(sc: WwlScan, d: int) -> bool:
 
 
 # Engine default for the fused-carry variant, set by the measured A/B on
-# v5e (docs/PERF.md round-5 ablation; tools/probes/probe_wwl_fused.py):
-# baseline-4 sweep 0.458 GB/s vs fused 0.259 GB/s — the (B, d+1) ring
-# updates each scan step cost ~2x what the plane write + d+1-slice sweep
-# cost (the sweep's shifted slices fuse into one elementwise pass, so the
-# plane it "saves" was nearly free).  The sweep stays the engine; the
-# fused kernel remains as the measured ablation + conformance target.
-FUSED_DEFAULT = False
+# the card (``tools/engine_costs.py``, BASELINE #4 widths, 4 Mi units,
+# turns sweep/fused/fused/sweep; H100 80GB HBM3, 400 W power limit):
+# fused 1.80 / 1.77 GB/s vs sweep 1.39 / 1.30 GB/s.  The sweep remains for
+# the dictionaries ``fused_applicable`` rejects.
+FUSED_DEFAULT = True
 
 
 @functools.partial(jax.jit, static_argnames=(
@@ -988,7 +988,7 @@ def scan_walks_auto(sc: WwlScan, cls_p: np.ndarray, starts, d: int,
                     cross: bool):
     """Run the production scan-walk engine for the given starts: the
     fused-carry kernel when applicable (``FUSED_DEFAULT`` — set by the
-    measured v5e A/B), else the sweep kernel.  One chooser shared by the
+    measured A/B on the card), else the sweep kernel.  One chooser shared by the
     matcher device path, the streaming cursor and the bench harness so the
     engine pick cannot drift between them."""
     import jax.numpy as jnp
@@ -1013,8 +1013,8 @@ def scan_walks_auto(sc: WwlScan, cls_p: np.ndarray, starts, d: int,
 
 def _plane_take(plane, idx):
     """Gather plane[idx] via 16-wide (64 B) row gathers + a fused one-hot
-    select: measured 341 M lanes/s vs 39 M/s for the element gather and
-    285 M/s for 8-wide rows on v5e (width sweep 2026-08-21)."""
+    select (its cost against an element gather is not measured on the
+    card)."""
     Lp = -(-plane.shape[0] // 16) * 16
     p16 = jnp.concatenate(
         [plane, jnp.zeros((Lp - plane.shape[0],), plane.dtype)]

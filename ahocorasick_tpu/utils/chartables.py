@@ -9,7 +9,7 @@ uses two JVM character predicates in its semantics:
   (reference: ``WordCharacters.java:6-16``).
 
 We reproduce both as dense numpy tables of size 65536 so that every engine
-(host gold model, XLA scan, Pallas kernel) folds characters identically.
+(host gold model, XLA scan, native compiler) folds characters identically.
 
 Fidelity notes
 --------------

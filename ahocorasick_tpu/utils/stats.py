@@ -53,7 +53,7 @@ def timed(stats: ScanStats):
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/ahocorasick_tpu_trace"):
+def trace(log_dir: str):
     """Capture a ``jax.profiler`` trace (view with XProf/Perfetto)."""
     import jax
 

@@ -120,11 +120,13 @@ def wide_text(rng: np.random.Generator, n_units: int) -> str:
 # --------------------------------------------------------------------------
 # Phase helpers.
 
-def _peak_bytes():
-    """Peak device bytes in use so far (None where JAX keeps no stats)."""
+def _peak_bytes(device=None):
+    """Peak bytes in use so far on ``device`` (default: the first); None
+    where JAX keeps no memory stats."""
     import jax
 
-    return (jax.devices()[0].memory_stats() or {}).get("peak_bytes_in_use")
+    device = device or jax.devices()[0]
+    return (device.memory_stats() or {}).get("peak_bytes_in_use")
 
 
 def plan_name(m) -> str:
@@ -153,17 +155,12 @@ def _device_call(m, fn, *args):
     return out
 
 
-def _triples(m, text: str):
-    s, e, v = _device_call(m, m.match_triples, text)
-    return s, e, v
-
-
 def check_gold(m, text: str, units: int) -> int:
     """Device triples on ``text[:units]`` must equal the gold model's."""
     from ahocorasick_tpu.core import gold
 
     prefix = text[:units]
-    s, e, v = _triples(m, prefix)
+    s, e, v = _device_call(m, m.match_triples, prefix)
     want = gold.GOLD_BY_KIND[m.kind](m.compiled, prefix)
     got = list(zip(s.tolist(), e.tolist(), v.tolist()))
     if got != [tuple(t) for t in want]:
@@ -173,34 +170,32 @@ def check_gold(m, text: str, units: int) -> int:
     return len(want)
 
 
-def run_phase(name: str, make, text: str, sz: Sizes, *,
-              count: bool = True) -> dict:
+def run_phase(name: str, make, text: str, sz: Sizes) -> dict:
     """Build the matcher, then time match_triples (and count) on ``text``:
     set-up = compile + first call, end-to-end = second call."""
     t0 = time.perf_counter()
     m = make()
     compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _triples(m, text)
+    _device_call(m, m.match_triples, text)
     setup_s = compile_s + time.perf_counter() - t0
     t0 = time.perf_counter()
-    s, _, _ = _triples(m, text)
+    s, e, v = _device_call(m, m.match_triples, text)
     triples_s = time.perf_counter() - t0
     rec = {"phase": name, "kind": m.kind, "plan": plan_name(m),
            "units": len(text), "matches": int(len(s)),
            "compile_s": compile_s, "setup_s": setup_s,
            "match_triples_s": triples_s}
-    if count:
-        _device_call(m, m.count, text)  # compiles the count program
-        t0 = time.perf_counter()
-        n = _device_call(m, m.count, text)
-        rec["count_s"] = time.perf_counter() - t0
-        if n != len(s):
-            raise AssertionError(f"{name}: count {n} != {len(s)} triples")
+    _device_call(m, m.count, text)  # compiles the count program
+    t0 = time.perf_counter()
+    n = _device_call(m, m.count, text)
+    rec["count_s"] = time.perf_counter() - t0
+    if n != len(s):
+        raise AssertionError(f"{name}: count {n} != {len(s)} triples")
     rec["gold_units"] = min(sz.gold_units, len(text))
     rec["gold_matches"] = check_gold(m, text, rec["gold_units"])
     rec["peak_bytes"] = _peak_bytes()
-    rec["_matcher"] = m
+    rec["_matcher"], rec["_triples"] = m, (s, e, v)
     return rec
 
 
@@ -225,8 +220,7 @@ def phase_map(sz: Sizes, seed: int) -> dict:
         "map-10k-folded",
         lambda: ac.AhoCorasickMap(kws, list(range(len(kws))), False),
         text, sz)
-    m = rec["_matcher"]
-    s, e, v = _triples(m, text)
+    m, (s, e, v) = rec["_matcher"], rec["_triples"]
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "text.txt")
         with open(path, "w", encoding="utf-8") as f:
@@ -324,8 +318,7 @@ def phase_big(sz: Sizes, seed: int) -> dict:
     kws = random_words(rng, sz.big_keywords)
     text = soup(rng, kws, sz.big_units)
     rec = run_phase("set-1m", lambda: ac.AhoCorasickSet(kws), text, sz)
-    m = rec["_matcher"]
-    s, e, v = _triples(m, text)
+    m, (s, e, v) = rec["_matcher"], rec["_triples"]
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "big.npz")
         t0 = time.perf_counter()
@@ -369,7 +362,7 @@ def four_cards(sz: Sizes, seed: int, n_dev: int = 4) -> None:
     kws = random_words(rng, sz.map_keywords)
     text = soup(rng, kws, sz.map_units).upper()
     m = ac.AhoCorasickMap(kws, list(range(len(kws))), False)
-    s1, e1, v1 = _triples(m, text)
+    s1, e1, v1 = _device_call(m, m.match_triples, text)
     check_gold(m, text, sz.gold_units)
 
     mesh = sharding.data_mesh(devices)
@@ -409,7 +402,7 @@ def four_cards(sz: Sizes, seed: int, n_dev: int = 4) -> None:
     big = random_words(rng, sz.big_keywords)
     btext = soup(rng, big, sz.big_units)
     mb = ac.AhoCorasickSet(big)
-    sb, eb, _ = _triples(mb, btext)
+    sb, eb, _ = _device_call(mb, mb.match_triples, btext)
     for label, bmesh in (("model", sharding.model_mesh(devices)),
                          ("dp_tp", sharding.dp_tp_mesh(devices))):
         ts = sharding.TableShardedScanner(mb, bmesh)
@@ -429,8 +422,7 @@ def four_cards(sz: Sizes, seed: int, n_dev: int = 4) -> None:
     print(json.dumps({"check": "dryrun_multichip", "devices": n_dev}),
           flush=True)
     print(json.dumps({"peak_bytes_per_device": [
-        int(d.memory_stats()["peak_bytes_in_use"]) for d in devices]}),
-        flush=True)
+        _peak_bytes(d) for d in devices]}), flush=True)
 
 
 # --------------------------------------------------------------------------

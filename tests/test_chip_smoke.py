@@ -30,6 +30,11 @@ def test_phase_tiny(phase):
         _check(rec)
 
 
+def test_four_cards_tiny():
+    """The --four path on four of the virtual CPU devices."""
+    chip_smoke.four_cards(TINY, 5)
+
+
 def test_random_words_distinct_and_seeded():
     a = chip_smoke.random_words(np.random.default_rng(1), 500)
     b = chip_smoke.random_words(np.random.default_rng(1), 500)

@@ -27,18 +27,6 @@ def _text(m, n_units=20000, seed=5):
     return "".join(rng.choice(list("abcdefgh "), size=n_units))
 
 
-def test_small_dictionary_plans_pick_block():
-    """A small dictionary picks the Triton block kernel on the GPU; on this
-    (CPU) backend both plans take a plain XLA engine instead."""
-    from ahocorasick_tpu.ops import scan_rowdfa
-
-    m, _ = _matcher(200)
-    assert scan_rowdfa.pick_engine(m.compiled, "gpu") == "block"
-    assert dispatch.backend() == "cpu"
-    assert dispatch.count_plan(m.compiled, m.dev).which != "block"
-    assert dispatch.planes_plan(m.compiled, m.dev).which != "block"
-
-
 def test_force_batched_overrides_pick():
     m, _ = _matcher(200)
     plan = dispatch.planes_plan(m.compiled, m.dev, "batched")
@@ -115,7 +103,7 @@ def test_hotstate_matcher_conformance_long_keywords():
 def test_auto_threshold_is_engine_aware():
     from ahocorasick_tpu.models import matchers
 
-    small = AhoCorasickSet(["abc", "bcd", "cde"])  # block-engine dict
+    small = AhoCorasickSet(["abc", "bcd", "cde"])  # small-table dict
     big_kws = ["a" * i for i in range(1, 90)] + ["bc"]  # hotstate-size depth
     assert matchers._auto_min_units(small.compiled) == 1 << 12
     rng = np.random.default_rng(0)

@@ -148,7 +148,7 @@ def test_ac_count_fused_device_kernel():
     rng = np.random.default_rng(99)
     big_enough = "".join(rng.choice(list("hers abx"), size=1 << 15))
     cases = [
-        ["he", "she", "hers"],                                # block tier
+        ["he", "she", "hers"],                                # rowdfa2 tier
         ["a" * 35, "ab", "ba"],                               # count-packed tier
         list({"".join(rng.choice(list("abcdefgh"),
                                  size=int(rng.integers(3, 9))))

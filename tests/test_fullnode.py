@@ -131,12 +131,11 @@ def test_row_compressed_shortest_device_engine(monkeypatch):
     # SHORTEST rides the candidates-then-resolve path: its internal AC
     # automaton over the (here: single-char) survivors has a packable
     # quotient DFA, so even the full-alphabet extreme scans on device.
-    # (Pinned to the XLA batched engine; the GPU pick, the Triton block
-    # kernel, is covered by test_block.py and test_gpu.py.)
+    # (Pinned to the XLA batched engine, the quotient's pick.)
     from ahocorasick_tpu.ops import scan_rowdfa
 
     monkeypatch.setattr(scan_rowdfa, "pick_engine",
-                    lambda m, backend: "batched")
+                    lambda m: "batched")
     m = ShortestMatchSet(FULL_KWS, engine="device")
     text = _text(800)
     got = m.match(text)
@@ -228,7 +227,7 @@ def test_sharded_counter_row_compressed(monkeypatch):
     monkeypatch.setattr(comp, "_DENSE_LIMIT", 4)
     # Pin the engine: the batched element-gather scan of the quotient.
     monkeypatch.setattr(scan_rowdfa, "pick_engine",
-                    lambda m, backend: "batched")
+                    lambda m: "batched")
     rng = np.random.default_rng(43)
     kws = ["ab", "bca", "a", "cc"]
     text = "".join(rng.choice(list("abcde "), size=4000))

@@ -1,12 +1,13 @@
-"""Card-only tests: the Triton block kernel compiled for the GPU.
+"""Card-only tests: the XLA engines as compiled for the GPU.
 
 Run on a machine with an NVIDIA GPU:
 
     python -m pytest tests/test_gpu.py -m gpu
 
 Each test skips (from the ``gpu`` fixture, never at import) when JAX's
-first device is not a GPU.  The kernel is compared bit for bit with the
-plain XLA engines at the widths of the BASELINE #1 and #6 dictionaries.
+first device is not a GPU.  The engines are compared bit for bit with each
+other at the widths of the BASELINE #1 and #6 dictionaries, and the
+facade's pick with the gold model.
 """
 
 import numpy as np
@@ -43,40 +44,49 @@ def _baseline6():
     return m, chip_smoke.wide_text(rng, _UNITS)
 
 
+def _engines(m):
+    from ahocorasick_tpu.ops import scan_rowdfa
+
+    return ["batched"] + [e for e, ok in (
+        ("rowdfa1", scan_rowdfa.fits1(m.compiled)),
+        ("rowdfa2", scan_rowdfa.fits(m.compiled))) if ok]
+
+
 @pytest.mark.parametrize("make", [_baseline1, _baseline6],
                          ids=["baseline1", "baseline6"])
-def test_block_kernel_equals_xla_engine(gpu, make):
+def test_engines_agree_at_real_width(gpu, make):
     import jax.numpy as jnp
 
-    from ahocorasick_tpu.kernels import scan_block
     from ahocorasick_tpu.ops import dispatch, scan_batched
 
     m, text = make()
-    assert scan_block.fits(m.compiled)
     cls = m._classes(text)
-    bd = m.dev.block_dfa
-    w = jnp.asarray(scan_batched.chunk_classes(
-        cls, 512, bd.halo, m.compiled.num_classes))
-    table = bd.table
-    args = (bd.halo, bd.state_bits, bd.num_classes)
-    xla = dispatch.planes_plan(m.compiled, m.dev, "batched")
-    xw = jnp.asarray(scan_batched.chunk_classes(
-        cls, 512, xla.halo, m.compiled.num_classes))
-    want = np.asarray(xla.fn(xla.tables, xw))[:, : len(cls)]
-    got = np.asarray(scan_block.block_emit_planes(table, w, *args))[:, : len(cls)]
-    np.testing.assert_array_equal(got, want)
-    xc = dispatch.count_plan(m.compiled, m.dev, "batched")
-    assert int(scan_block.block_count(table, w, *args)) == int(
-        xc.fn(xc.tables, xw)) > 0
+    planes, counts = [], []
+    for eng in _engines(m):
+        pp = dispatch.planes_plan(m.compiled, m.dev, eng)
+        w = jnp.asarray(scan_batched.chunk_classes(
+            cls, 512, pp.halo, m.compiled.num_classes))
+        planes.append(np.asarray(pp.fn(pp.tables, w))[:, : len(cls)])
+        cp = dispatch.count_plan(m.compiled, m.dev, eng)
+        counts.append(int(cp.fn(cp.tables, w)))
+    for p in planes[1:]:
+        np.testing.assert_array_equal(p, planes[0])
+    assert len(set(counts)) == 1 and counts[0] > 0
+    assert counts[0] == int(np.bitwise_count(planes[0]).sum())
 
 
-def test_facade_pick_on_card(gpu):
+@pytest.mark.parametrize("make,want", [(_baseline1, "rowdfa2"),
+                                       (_baseline6, "batched")],
+                         ids=["baseline1", "baseline6"])
+def test_facade_pick_on_card(gpu, make, want):
+    import jax
+
     from ahocorasick_tpu.core import gold
     from ahocorasick_tpu.ops import dispatch
 
-    m, text = _baseline1()
-    assert dispatch.backend() == "gpu"
-    assert dispatch.planes_plan(m.compiled, m.dev).which == "block"
+    m, text = make()
+    assert jax.default_backend() == "gpu"
+    assert dispatch.planes_plan(m.compiled, m.dev).which == want
     text = text[: 1 << 17]
     s, e, v = m.match_triples(text)
     assert m.last_stats.engine == "device"

@@ -172,49 +172,39 @@ def test_rowdfa1_fuzz_vs_gold():
             [(a, b) for a, b, _ in expected], (trial, kws)
 
 
-def test_pick_engine_tiers():
-    from ahocorasick_tpu.kernels import scan_block
-
-    # tiny dict: Pallas block kernel wins
-    m = compile_matcher(["ab", "ba"], "ac", True)
-    assert scan_rowdfa.pick_engine(m) == "block"
-    assert scan_rowdfa.fits1(m)
+def test_pick_engine_tiers(monkeypatch):
     import ahocorasick_tpu.ops.scan_rowdfa as mod
-    orig2, orig1, origb = mod._MAX_BYTES, mod._MAX_BYTES_1, scan_block.MAX_ENTRIES
-    try:
-        scan_block.MAX_ENTRIES = 4
-        assert mod.pick_engine(m) == "rowdfa2"
-        mod._MAX_BYTES = 10
-        assert mod.pick_engine(m) == "rowdfa1"
-        mod._MAX_BYTES_1 = 10
-        assert mod.pick_engine(m) == "batched"
-    finally:
-        mod._MAX_BYTES, mod._MAX_BYTES_1 = orig2, orig1
-        scan_block.MAX_ENTRIES = origb
+
+    # tiny dict: the stride-2 row engine (cheapest on the card)
+    m = compile_matcher(["ab", "ba"], "ac", True)
+    assert mod.pick_engine(m) == "rowdfa2"
+    assert mod.fits1(m)
+    # past the stride-2 budget: batched (rowdfa1 costs more per character)
+    monkeypatch.setattr(mod, "_MAX_BYTES", 10)
+    assert mod.pick_engine(m) == "batched"
+    # and a wide alphabet admits neither row engine
+    monkeypatch.setattr(mod, "_MAX_SELECT_CLASSES", 4)
+    assert not mod.fits1(m)
+    assert mod.pick_engine(m) == "batched"
 
 
-def test_rowdfa1_through_facade_mid_dictionary():
-    """A dictionary big enough to fail the stride-2 gate goes through the
-    stride-1 row engine inside the public facade, matching gold exactly."""
+def test_rowdfa1_through_facade_mid_dictionary(monkeypatch):
+    """The stride-1 row engine (no longer the pick for any dictionary)
+    still matches gold exactly inside the public facade when forced."""
     rng = np.random.default_rng(23)
     kws = list({
         "".join(rng.choice(list("abcdefghij"), size=int(rng.integers(3, 10))))
         for _ in range(800)
     })
     m = compile_matcher(kws, "ac", True)
-    # force past the block tier so the row engines handle it
-    import ahocorasick_tpu.kernels.scan_block as sb
-    origb = sb.MAX_ENTRIES
-    sb.MAX_ENTRIES = 4
-    try:
-        assert scan_rowdfa.pick_engine(m) in ("rowdfa1", "rowdfa2")
-        dev_m = AhoCorasickSet(kws, engine="device")
-        gold_m = AhoCorasickSet(kws, engine="gold")
-        text = " ".join(rng.choice(kws, size=200)) + " qqq " + "".join(
-            rng.choice(list("abcdefghij "), size=2000))
-        assert dev_m.match(text) == gold_m.match(text)
-    finally:
-        sb.MAX_ENTRIES = origb
+    assert scan_rowdfa.fits1(m)
+    monkeypatch.setattr(scan_rowdfa, "pick_engine", lambda m: "rowdfa1")
+    dev_m = AhoCorasickSet(kws, engine="device")
+    gold_m = AhoCorasickSet(kws, engine="gold")
+    text = " ".join(rng.choice(kws, size=200)) + " qqq " + "".join(
+        rng.choice(list("abcdefghij "), size=2000))
+    assert dev_m.match(text) == gold_m.match(text)
+    assert dev_m.count(text) == len(gold_m.match(text))
 
 
 def test_rowdfa1_count_kernel():

@@ -108,8 +108,8 @@ def test_make_sharded_counter_all_tiers():
     mesh = sharding.data_mesh()
 
     cases = {
-        # block tier: tiny dictionary
-        "block": ["he", "she", "hers"],
+        # stride-2 row tier: tiny dictionary
+        "rowdfa2": ["he", "she", "hers"],
         # split tier: long keywords overflow the packed layout
         "batched": ["a" * 35, "b" * 33, "ab" * 17],
     }
@@ -121,13 +121,9 @@ def test_make_sharded_counter_all_tiers():
 
     for label, kws in cases.items():
         m = AhoCorasickSet(kws, engine="gold")
-        # The CPU test mesh runs the XLA pick; the same dictionary picks
-        # the Triton block kernel on a GPU.
-        which = scan_rowdfa.pick_engine(m.compiled, "cpu")
-        if label == "block":
-            assert scan_rowdfa.pick_engine(m.compiled, "gpu") == "block"
-        if label == "batched":
-            assert which == "batched"
+        which = scan_rowdfa.pick_engine(m.compiled)
+        if label in ("rowdfa2", "batched"):
+            assert which == label
         text = "".join(rng.choice(list("abhersx "), size=7001))
         if label == "batched":
             text += "a" * 40 + " " + "ab" * 17

@@ -62,7 +62,7 @@ def test_split_facade_vs_gold_fuzz():
         for _ in range(30)
     }) + ["a" * 35, "b" * 33, "ab" * 17]
     m = compile_matcher(kws, "ac", True)
-    assert scan_rowdfa.pick_engine(m, "gpu") == "batched"
+    assert scan_rowdfa.pick_engine(m) == "batched"
     dev_m = AhoCorasickSet(kws, engine="device")
     gold_m = AhoCorasickSet(kws, engine="gold")
     for trial in range(4):

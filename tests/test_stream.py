@@ -135,7 +135,7 @@ def test_stream_long_keyword_spanning_many_chunks():
 
 
 # --------------------------------------------------------------------------- #
-# Device-engine streams: large feeds ride the batched/rowdfa/block engines
+# Device-engine streams: large feeds ride the batched/rowdfa engines
 # with tail-halo warmup (core/stream._CandidateSource).  engine="device"
 # forces the device path at ANY feed size, so tiny chunk sizes exercise the
 # tail-exactness argument cheaply on the CPU mesh.

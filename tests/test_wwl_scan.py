@@ -110,7 +110,7 @@ def test_scan_engine_quotient_multichar():
 
 def test_scan_engine_flat_layout(monkeypatch):
     # Force the flat-gather (non-row) table layout on a dense dictionary.
-    monkeypatch.setattr(scan_wwl, "_ROW_MAX_BYTES", 0)
+    monkeypatch.setattr(scan_wwl, "_ROW_MAX_CLASSES", 0)
     rng = random.Random(5)
     kws = list({
         "".join(rng.choice("abcdefgh") for _ in range(rng.randint(1, 7)))

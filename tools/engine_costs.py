@@ -1,20 +1,18 @@
 """Engine measurements on one GPU: the numbers behind ``pick_engine``.
 
-    python tools/engine_costs.py [--out chiprun_out/engine_costs.jsonl]
+    python tools/engine_costs.py [--out build/engine_costs.jsonl]
 
 Prints one JSON line per measurement (and appends it to ``--out``), each
 with the card's name and power limit:
 
-* ``ab``: the Triton block kernel against each plain XLA engine that fits,
-  end to end through the public ``count`` and ``match_triples`` at the
-  BASELINE #1 (100 keywords) and #6 (full-node quotient) widths, 16 Mi
-  units, in turns XLA, block, block, XLA.  Each turn reports the median of
-  three calls.
 * ``cost``: per-character kernel cost (``bench.ac_kernel_rate``, data on
   the device, reps inside one jit) for every AC engine at three
   dictionary sizes: 100, 10k (the headline) and 100k keywords.
-* ``wwl``: the WWL fused-carry kernel against the plane sweep, and the row
-  table layout against the flat one, at BASELINE #4 widths.
+* ``select``: the same for alphabets of 64 to 512 classes (the row
+  engines' one-hot select grows with the alphabet).
+* ``wwl``: the WWL fused-carry kernel against the plane sweep at BASELINE
+  #4 widths, and the row table layout against the flat one at BASELINE #4
+  and with 100k keywords.
 
 Exits non-zero when JAX's first device is not a GPU.
 """
@@ -22,13 +20,10 @@ Exits non-zero when JAX's first device is not a GPU.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
-import statistics
 import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -38,51 +33,6 @@ import numpy as np  # noqa: E402
 import chip_smoke  # noqa: E402
 
 MI = 1 << 20
-
-
-@contextlib.contextmanager
-def forced_engine(engine):
-    """Every plan picks ``engine`` (None: the normal pick)."""
-    from ahocorasick_tpu.ops import scan_rowdfa
-
-    orig = scan_rowdfa.pick_engine
-    if engine is not None:
-        scan_rowdfa.pick_engine = lambda m, backend: engine
-    try:
-        yield
-    finally:
-        scan_rowdfa.pick_engine = orig
-
-
-def _median_s(fn, n=3):
-    ts = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        fn()
-        ts.append(time.perf_counter() - t0)
-    return statistics.median(ts)
-
-
-def run_ab(emit, label, m, text):
-    from ahocorasick_tpu.ops import scan_rowdfa
-
-    c = m.compiled
-    xla = ["batched"] + (["rowdfa1"] if scan_rowdfa.fits1(c) else []) + (
-        ["rowdfa2"] if scan_rowdfa.fits(c) else [])
-    for eng in ["block"] + xla:  # compile every program first
-        with forced_engine(eng):
-            m.count(text)
-            m.match_triples(text)
-    for x in xla:
-        for eng in (x, "block", "block", x):
-            with forced_engine(eng):
-                count_s = _median_s(lambda: m.count(text))
-                assert m.last_stats.engine == "device"
-                triples_s = _median_s(lambda: m.match_triples(text))
-                n = m.count(text)
-            emit({"what": "ab", "config": label, "pair": f"{x}|block",
-                  "engine": eng, "units": len(text), "matches": n,
-                  "count_s": count_s, "match_triples_s": triples_s})
 
 
 def run_costs(emit, label, m, text, engines):
@@ -106,34 +56,53 @@ def run_costs(emit, label, m, text, engines):
               "ns_per_char": 2.0 / gbps})
 
 
-def run_wwl(emit, text, kws, wc):
+def run_wwl(emit, label, text, kws, wc, fused=(False, True, True, False),
+            flat=(True, False, False, True)):
+    """Turns of the fused-carry kernel against the sweep, then of the flat
+    table layout against the row layout."""
     import ahocorasick_tpu as ac
     from ahocorasick_tpu.bench import wwl_kernel_rate
     from ahocorasick_tpu.ops import scan_wwl
 
-    for fused in (False, True, True, False):
-        scan_wwl.FUSED_DEFAULT = fused
+    default, gate = scan_wwl.FUSED_DEFAULT, scan_wwl._ROW_MAX_CLASSES
+
+    def one(**rec):
         m = ac.WholeWordLongestMatchSet(kws, word_chars=wc)
+        sc = m.dev.wwl_scan
         gbps = wwl_kernel_rate(m, m._classes(text), reps=4)
-        emit({"what": "wwl", "variant": "fused" if fused else "sweep",
-              "row_layout": m.dev.wwl_scan.row_layout, "units": len(text),
-              "kernel_gbps": gbps})
-    scan_wwl.FUSED_DEFAULT = False
-    orig = scan_wwl._ROW_MAX_BYTES
-    for flat in (True, False, False, True):
-        scan_wwl._ROW_MAX_BYTES = 0 if flat else orig
-        m = ac.WholeWordLongestMatchSet(kws, word_chars=wc)
-        gbps = wwl_kernel_rate(m, m._classes(text), reps=4)
-        emit({"what": "wwl", "variant": "sweep",
-              "row_layout": m.dev.wwl_scan.row_layout, "units": len(text),
-              "kernel_gbps": gbps})
-    scan_wwl._ROW_MAX_BYTES = orig
+        emit({"what": "wwl", "config": label, **rec,
+              "row_layout": sc.row_layout, "table_bytes": int(sc.table.nbytes),
+              "units": len(text), "kernel_gbps": gbps})
+
+    try:
+        for f in fused:
+            scan_wwl.FUSED_DEFAULT = f
+            one(variant="fused" if f else "sweep")
+        scan_wwl.FUSED_DEFAULT = default
+        for fl in flat:
+            scan_wwl._ROW_MAX_CLASSES = 0 if fl else gate
+            one(variant="fused" if default else "sweep")
+    finally:
+        scan_wwl.FUSED_DEFAULT, scan_wwl._ROW_MAX_CLASSES = default, gate
+
+
+def wide_alphabet(rng, n_classes: int, n_units: int):
+    """Keywords (4-grams of a shuffled alphabet, so every character is in a
+    keyword and the dictionary has ``n_classes`` classes) and text over
+    ``n_classes - 1`` CJK characters plus space."""
+    chars = rng.permutation(
+        np.array([chr(0x4E00 + i) for i in range(n_classes - 1)]))
+    kws = sorted({"".join(chars[i:i + 4]) for i in range(0, len(chars) - 3, 2)})
+    base = rng.integers(0, n_classes - 1, size=MI)
+    base[rng.random(MI) < 0.15] = -1
+    text = "".join(np.append(chars, " ")[base].tolist())
+    return kws, (text * (n_units // MI + 1))[:n_units]
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(
-        ROOT, "chiprun_out", "engine_costs.jsonl"))
+        ROOT, "build", "engine_costs.jsonl"))
     p.add_argument("--seed", type=int, default=7)
     args = p.parse_args(argv)
 
@@ -159,23 +128,24 @@ def main(argv=None) -> None:
             f.write(line + "\n")
 
     rng = np.random.default_rng(args.seed)
-    kws1 = chip_smoke.random_words(rng, 100)
-    m1 = ac.AhoCorasickSet(kws1)
-    run_ab(emit, "baseline-1", m1, chip_smoke.soup(rng, kws1, 16 * MI))
-    m6 = ac.AhoCorasickSet([chr(c) for c in range(32, 0xD800)])
-    run_ab(emit, "baseline-6", m6, chip_smoke.wide_text(rng, 16 * MI))
-
-    all_engines = ("batched", "rowdfa1", "rowdfa2", "block")
-    for n_kw, engines in ((100, all_engines), (10_000, all_engines),
-                          (100_000, ("batched", "rowdfa1"))):
+    engines = ("batched", "rowdfa1", "rowdfa2")
+    for n_kw in (100, 10_000, 100_000):
         kws = chip_smoke.random_words(rng, n_kw)
         m = ac.AhoCorasickSet(kws)
         run_costs(emit, f"set-{n_kw}", m, chip_smoke.soup(rng, kws, 32 * MI),
-                  engines)
+                  engines if n_kw < 100_000 else engines[:2])
+
+    for n_classes in (64, 128, 256, 512):
+        kws, text = wide_alphabet(rng, n_classes, 32 * MI)
+        m = ac.AhoCorasickSet(kws)
+        run_costs(emit, f"select-{m.compiled.num_classes}", m, text, engines)
 
     wc = chip_smoke._word_chars()
     kws4 = chip_smoke.random_words(rng, 1000) + ["naïve", "can't", "übermäßig"]
-    run_wwl(emit, chip_smoke.soup(rng, kws4, 4 * MI), kws4, wc)
+    run_wwl(emit, "baseline-4", chip_smoke.soup(rng, kws4, 4 * MI), kws4, wc)
+    big = chip_smoke.random_words(rng, 100_000)
+    run_wwl(emit, "wwl-100k", chip_smoke.soup(rng, big, 4 * MI), big, wc,
+            fused=())
 
 
 if __name__ == "__main__":
